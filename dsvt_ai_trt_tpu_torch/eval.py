@@ -1,0 +1,145 @@
+"""Order-insensitive box-set comparison for parity checking (a copy of the
+JAX package's eval.py, with the NumPy box geometry of its io/host_nms.py;
+the port imports nothing of that package).
+
+The reference's box *sets* are stable but their order is not (atomicAdd
+compaction, SURVEY §2.4-5), so parity between two runs/engines is measured
+by greedy class-aware matching on BEV IoU, not row order.  Used by
+chip_smoke.py for the bf16-vs-fp32 parity on the card.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+
+def _corners(boxes: np.ndarray) -> np.ndarray:
+    cx, cy = boxes[:, 0], boxes[:, 1]
+    hx, hy = boxes[:, 4] / 2, boxes[:, 3] / 2
+    ang = boxes[:, 6]
+    ox = np.stack([-hx, hx, hx, -hx], 1)
+    oy = np.stack([-hy, -hy, hy, hy], 1)
+    c, s = np.cos(ang)[:, None], np.sin(ang)[:, None]
+    return np.stack([ox * c - oy * s + cx[:, None],
+                     ox * s + oy * c + cy[:, None]], -1)
+
+
+def _clip_area(pa: np.ndarray, pb: np.ndarray) -> float:
+    """Sutherland–Hodgman intersection area of two convex quads."""
+    poly = list(pa)
+    for e in range(4):
+        a, b = pb[e], pb[(e + 1) % 4]
+        ex, ey = b[0] - a[0], b[1] - a[1]
+        out = []
+        n = len(poly)
+        if n < 3:
+            return 0.0
+        for i in range(n):
+            cur, nxt = poly[i], poly[(i + 1) % n]
+            dc = ex * (cur[1] - a[1]) - ey * (cur[0] - a[0])
+            dn = ex * (nxt[1] - a[1]) - ey * (nxt[0] - a[0])
+            if dc >= 0:
+                out.append(cur)
+            if (dc >= 0) != (dn >= 0):
+                t = dc / (dc - dn)
+                out.append((cur[0] + t * (nxt[0] - cur[0]),
+                            cur[1] + t * (nxt[1] - cur[1])))
+        poly = out
+    if len(poly) < 3:
+        return 0.0
+    area = 0.0
+    for i in range(len(poly)):
+        j = (i + 1) % len(poly)
+        area += poly[i][0] * poly[j][1] - poly[j][0] * poly[i][1]
+    return abs(area) / 2
+
+
+def _bev_iou(a: np.ndarray, b: np.ndarray) -> float:
+    ca = _corners(a[None])[0]
+    cb = _corners(b[None])[0]
+    ov = _clip_area(ca, cb)
+    sa = a[3] * a[4]
+    sb = b[3] * b[4]
+    return ov / max(sa + sb - ov, 1e-8)
+
+
+def match_boxes(pred: np.ndarray, ref: np.ndarray,
+                iou_threshold: float = 0.5,
+                class_aware: bool = True) -> Dict:
+    """Greedy best-IoU matching.  pred/ref: [N, 9] rows
+    (x,y,z,dx,dy,dz,heading,class,score).  Returns match stats."""
+    n_pred, n_ref = len(pred), len(ref)
+    used = np.zeros(n_ref, bool)
+    matches = []
+    order = np.argsort(-pred[:, 8]) if n_pred else []
+    for i in order:
+        best_j, best_iou = -1, iou_threshold
+        for j in range(n_ref):
+            if used[j]:
+                continue
+            if class_aware and int(pred[i, 7]) != int(ref[j, 7]):
+                continue
+            iou = _bev_iou(pred[i], ref[j])
+            if iou > best_iou:
+                best_iou, best_j = iou, j
+        if best_j >= 0:
+            used[best_j] = True
+            matches.append((i, best_j, best_iou))
+
+    n_match = len(matches)
+    score_err = (max(abs(pred[i, 8] - ref[j, 8]) for i, j, _ in matches)
+                 if matches else 0.0)
+    center_err = (max(float(np.linalg.norm(pred[i, :3] - ref[j, :3]))
+                      for i, j, _ in matches) if matches else 0.0)
+    return {
+        "n_pred": n_pred,
+        "n_ref": n_ref,
+        "n_match": n_match,
+        "precision": n_match / max(n_pred, 1),
+        "recall": n_match / max(n_ref, 1),
+        "mean_iou": float(np.mean([m[2] for m in matches])) if matches else 0.0,
+        "max_score_err": float(score_err),
+        "max_center_err": float(center_err),
+    }
+
+
+def coverage(queries: np.ndarray, pool: np.ndarray,
+             iou_threshold: float = 0.5) -> Dict:
+    """Existence check: fraction of `queries` with SOME same-class box in
+    `pool` at IoU >= threshold.  Unlike match_boxes there is no exclusivity
+    — two overlapping query boxes may be witnessed by one pool box — which
+    is the correct semantics for "every confident box must exist on the
+    other side" parity gates (greedy 1:1 matching under-counts on clustered
+    near-duplicates)."""
+    n = len(queries)
+    hit = 0
+    score_err = center_err = 0.0
+    for q in queries:
+        best_iou, best_j = iou_threshold, -1
+        for j in range(len(pool)):
+            if int(q[7]) != int(pool[j, 7]):
+                continue
+            iou = _bev_iou(q, pool[j])
+            if iou > best_iou:
+                best_iou, best_j = iou, j
+        if best_j >= 0:
+            hit += 1
+            # score drift only when both sides carry a score column —
+            # GT boxes are [x,y,z,dx,dy,dz,heading,cls] (8 cols, data.py)
+            if len(q) > 8 and pool.shape[1] > 8:
+                score_err = max(score_err,
+                                abs(float(q[8] - pool[best_j, 8])))
+            center_err = max(center_err,
+                             float(np.linalg.norm(q[:3] - pool[best_j, :3])))
+    # vacuous truth for an empty query set: nothing confident to cover
+    return {"n": n, "covered": hit, "coverage": hit / n if n else 1.0,
+            "max_score_err": score_err, "max_center_err": center_err}
+
+
+def parity_ok(pred: np.ndarray, ref: np.ndarray, iou_threshold: float = 0.5,
+              min_recall: float = 0.95, min_precision: float = 0.95) -> bool:
+    stats = match_boxes(pred, ref, iou_threshold)
+    return (stats["recall"] >= min_recall
+            and stats["precision"] >= min_precision)
