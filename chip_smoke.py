@@ -20,7 +20,7 @@ Phases (any failure exits non-zero):
   6. end-to-end checks: the tiny configuration's fp32 boxes on the card
      against ``tests/goldens/tiny_seed0.json``, and box parity of the bf16
      kernel path against fp32, both on the card, on checkpoints calibrated
-     on the two dense frames (``check_parity`` says what is gated);
+     on each of the three frames (``check_parity`` says what is gated);
   7. print the ``kernels`` JSON line, the card line, and last the result
      line ``{"ok": true, "device": {...}}``.
 
@@ -49,6 +49,8 @@ REPLACES = {
     "encoder_epilogue": "dsvt_ai_trt_tpu/ops/encoder_pallas.py:64",
     "rotated_overlap": "dsvt_ai_trt_tpu/ops/nms_pallas.py:116",
 }
+PARITY_MIN_SCORE = 0.3 + 0.05     # tools/parity_check.py: threshold + margin
+PARITY_MIN_COVERAGE = 0.99        # its gate with exact top-k
 GOLDEN_TINY = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "tests", "goldens", "tiny_seed0.json")
 
@@ -416,8 +418,8 @@ def check_rotated_overlap(recorder, frame):
                                atol=1e-4, rtol=1e-4)
     check(torch.all(torch.tril(got) == 0), "rotated_overlap: a >= b not zero")
     count = int((boxes[:, 8] > 0).sum())
-    kb, kc = nms_ops.nms(boxes, count, 0.01, use_kernel=True)
-    pb, pc = nms_ops.nms(boxes, count, 0.01, use_kernel=False)
+    kb, kc = nms_ops.nms(boxes, count, 0.01, use_kernels=True)
+    pb, pc = nms_ops.nms(boxes, count, 0.01, use_kernels=False)
     check(int(kc) == int(pc) and torch.equal(kb, pb),
           f"nms kept set differs: kernel {int(kc)} vs plain {int(pc)}")
     t_k = cuda_ms(lambda: nk.pairwise_overlap_cuda(boxes))
@@ -455,24 +457,24 @@ def check_tiny_golden():
 
 
 def check_parity(frames):
-    """bf16 with the kernels vs fp32, both on the card, per frame on a
-    checkpoint calibrated on that frame (this package's calibrated_raw at
-    fp32: the 40th-highest heatmap cell sits at score 0.38).
+    """bf16 with the kernels vs fp32, both on the card, on every smoke
+    frame, each with a checkpoint calibrated on that frame (this package's
+    calibrated_raw at fp32: the 40th-highest heatmap cell sits at 0.38).
 
-    Gate, as the JAX package's tools/parity_check.py: every confident box
-    (score >= 0.38) of either side, before NMS, exists among the other
-    side's boxes (same class, BEV IoU >= 0.5), for >= 0.95 of them both
+    Gate, the JAX package's tools/parity_check.py with exact top-k (the
+    port's only top-k), on the boxes before NMS: every box of score >=
+    PARITY_MIN_SCORE on either side exists among the other side's boxes
+    (same class, BEV IoU >= 0.5) for >= PARITY_MIN_COVERAGE of them both
     ways, with matched scores within 0.03 and centres within 0.3 m.
 
-    Not gated, printed: eval.parity_ok on the boxes after NMS.  With seeded
-    random weights hundreds of cells score within bf16 noise of one another
-    between 0.3 and 0.38, and greedy NMS at IoU 0.01 turns each near-tie
-    into a different suppression chain, so that match lands on either side
-    of 0.95 from frame to frame while the matched boxes agree to ~0.01 in
-    score."""
+    Printed, not gated: eval.parity_ok (a one-to-one match of every box,
+    recall and precision >= 0.95) before and after NMS.  It misses on some
+    frames here, and on seeded random weights the JAX package misses it
+    between its own bf16 and fp32 paths too (``python
+    tests/test_torch_parity.py`` prints both)."""
     from dsvt_ai_trt_tpu_torch import weights
     from dsvt_ai_trt_tpu_torch.config import DEFAULT_CONFIG
-    from dsvt_ai_trt_tpu_torch.eval import coverage, match_boxes, parity_ok
+    from dsvt_ai_trt_tpu_torch.eval import coverage, match_boxes
     from dsvt_ai_trt_tpu_torch.runtime.infer import Engine
     cfg32 = dataclasses.replace(DEFAULT_CONFIG, precision="fp32")
     cfg16 = dataclasses.replace(DEFAULT_CONFIG, precision="bf16")
@@ -480,33 +482,38 @@ def check_parity(frames):
     def boxes(dets):
         return dets.boxes[:int(dets.count)].cpu().numpy()
 
+    failed = []
     for name, (pts, n) in frames.items():
         raw = weights.calibrated_raw(cfg32, pts, n, seed=0, device="cuda")
         params = weights.from_jax_params(weights.prepare_params(raw, cfg32),
                                          "cuda")
-        e32, e16 = Engine(params, cfg32), Engine(params, cfg16)
         p32 = boxes(Engine(params, cfg32, with_nms=False)(pts, n))
         p16 = boxes(Engine(params, cfg16, with_nms=False)(pts, n))
-        recall = coverage(p32[p32[:, 8] >= 0.38], p16)
-        precision = coverage(p16[p16[:, 8] >= 0.38], p32)
+        recall = coverage(p32[p32[:, 8] >= PARITY_MIN_SCORE], p16)
+        precision = coverage(p16[p16[:, 8] >= PARITY_MIN_SCORE], p32)
         score_err = max(recall["max_score_err"], precision["max_score_err"])
         center_err = max(recall["max_center_err"],
                          precision["max_center_err"])
-        n32, n16 = boxes(e32(pts, n)), boxes(e16(pts, n))
-        post = match_boxes(n16, n32)
+        pre = match_boxes(p16, p32)
+        post = match_boxes(boxes(Engine(params, cfg16)(pts, n)),
+                           boxes(Engine(params, cfg32)(pts, n)))
         ok = (recall["n"] >= 10 and precision["n"] >= 10
-              and recall["coverage"] >= 0.95 and precision["coverage"] >= 0.95
+              and recall["coverage"] >= PARITY_MIN_COVERAGE
+              and precision["coverage"] >= PARITY_MIN_COVERAGE
               and score_err <= 0.03 and center_err <= 0.3)
-        log({"phase": "parity", "frame": name,
+        log({"phase": "parity", "frame": name, "ok": ok,
              "confident_fp32": recall["n"], "confident_bf16": precision["n"],
              "recall": recall["coverage"], "precision": precision["coverage"],
              "max_score_err": score_err, "max_center_err": center_err,
-             "ok": ok, "after_nms_fp32_boxes": len(n32),
-             "after_nms_bf16_boxes": len(n16),
-             "after_nms_parity_ok": parity_ok(n16, n32),
-             "after_nms_recall": post["recall"],
-             "after_nms_precision": post["precision"]})
-        check(ok, f"bf16 vs fp32 parity failed on {name}")
+             "parity_ok_before_nms": {
+                 "boxes": [pre["n_pred"], pre["n_ref"]],
+                 "recall": pre["recall"], "precision": pre["precision"]},
+             "parity_ok_after_nms": {
+                 "boxes": [post["n_pred"], post["n_ref"]],
+                 "recall": post["recall"], "precision": post["precision"]}})
+        if not ok:
+            failed.append(name)
+    check(not failed, f"bf16 vs fp32 parity failed on {failed}")
 
 
 def main() -> int:
@@ -563,7 +570,7 @@ def _main(torch) -> int:
         log({"phase": "kernel", "name": name, "kernel_ms": res["ms"], **res})
 
     log({"phase": "golden", **check_tiny_golden()})
-    check_parity({k: v for k, v in frames.items() if k.startswith("dense")})
+    check_parity(frames)
 
     sources = {name: "dsvt_ai_trt_tpu_torch/csrc/" + kernels.SPECS[name][0]
                for name in PER_FRAME}

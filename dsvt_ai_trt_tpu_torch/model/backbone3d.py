@@ -18,7 +18,7 @@ partition b % 2, as in the reference.
 Kept from the JAX package: the pos-embed second linear folded into the q/k
 projections, the three projections packed into one [C, 3C] matmul on the
 [P, C] pillar rows, and the deterministic canonical-slot scatter-back.  The
-fused path (kernels B1 + B2) is chosen by ``use_pallas`` and the precision
+fused path (kernels B1 + B2) is chosen by ``use_kernels`` and the precision
 (bf16 or mixed), not by the device; on CPU tensors its wrappers run their
 plain versions.
 """
@@ -50,35 +50,42 @@ def scatter_back(attn_flat: torch.Tensor, canon: torch.Tensor) -> torch.Tensor:
     return torch.where((canon < n)[:, None], out, torch.zeros_like(out))
 
 
-def _packed_qkv_weights(enc: dict, mlp: dict):
-    """w_qkv [C, 3C], w_pos [C, 3C] (pos-embed linear2 folded into q and k,
-    zero for v) and b_qkv [3C]."""
+def fold_encoder(enc: dict, mlp: dict) -> dict:
+    """The derived weights of one encoder pass, made once when the weights
+    are carried to the device (``weights.from_jax_params``): w_qkv [C, 3C],
+    w_pos [C, 3C] (pos-embed linear2 folded into q and k, zero for v) and
+    b_qkv [3C] in f32, w_qkv and w_pos again in bf16 for the fast paths'
+    products, and kernel B2's operands (``encoder_kernel.kernel_weights``)."""
     w_qkv = torch.cat([enc["wq"], enc["wk"], enc["wv"]], dim=1)
     w_pos = torch.cat([mlp["w2"] @ enc["wq"], mlp["w2"] @ enc["wk"],
                        torch.zeros_like(enc["wv"])], dim=1)
     b_qkv = torch.cat([mlp["b2"] @ enc["wq"] + enc["bq"],
                        mlp["b2"] @ enc["wk"] + enc["bk"], enc["bv"]])
-    return w_qkv, w_pos, b_qkv
+    return {"w_qkv": w_qkv, "w_pos": w_pos, "b_qkv": b_qkv,
+            "w_qkv_bf16": w_qkv.to(torch.bfloat16),
+            "w_pos_bf16": w_pos.to(torch.bfloat16),
+            **encoder_kernel.kernel_weights(enc)}
 
 
 def backbone3d_forward(pillar_feats: torch.Tensor,
                        window_parts: Sequence[WindowPartition],
                        set_parts: Sequence[SetPartition],
-                       params: dict, cfg: DSVTConfig,
-                       precision: str = "fp32",
-                       allow_kernels: bool = True) -> torch.Tensor:
-    """pillar_feats: [P, C] -> [P, C] (f32) after the DSVT blocks.
-    ``allow_kernels=False`` forces the unfused epilogue and attention
-    (``forward_debug``)."""
+                       params: dict, cfg: DSVTConfig, *,
+                       use_kernels: bool) -> torch.Tensor:
+    """pillar_feats: [P, C] -> [P, C] (f32) after the DSVT blocks, at
+    ``cfg.precision``.  ``params`` as ``weights.from_jax_params`` makes
+    them (with ``fold_encoder``'s weights).  ``use_kernels`` with bf16 or
+    mixed precision takes the fused path (kernels B1 + B2)."""
     eps = cfg.ln_eps
+    precision = cfg.precision
     mdt = matmul_dtype(precision)
+    w_sfx = "_bf16" if mdt is torch.bfloat16 else ""
     hidden: List[List[torch.Tensor]] = [
         [pos_embed_hidden(window_parts[e].xy_centered,
                           params["posembed"][b][e])
          for e in range(2)] for b in range(cfg.num_blocks)]
 
-    use_fused = (allow_kernels and cfg.use_pallas
-                 and precision in ("bf16", "mixed"))
+    use_fused = use_kernels and precision in ("bf16", "mixed")
 
     x = pillar_feats
     for b in range(cfg.num_blocks):
@@ -86,14 +93,13 @@ def backbone3d_forward(pillar_feats: torch.Tensor,
         x_in = x
         for e in range(2):
             enc = params["blocks"][b]["enc"][e]
-            w_qkv, w_pos, b_qkv = _packed_qkv_weights(enc,
-                                                      params["posembed"][b][e])
-            qkv_p = (dense(x, w_qkv, None, mdt)
-                     + dense(hidden[b][e], w_pos, None, mdt) + b_qkv)
+            qkv_p = (dense(x, enc["w_qkv" + w_sfx], None, mdt)
+                     + dense(hidden[b][e], enc["w_pos" + w_sfx], None, mdt)
+                     + enc["b_qkv"])
 
             attn = set_attention_qkv(qkv_p, sp.inds[e], sp.key_mask,
                                      cfg.num_heads, precision,
-                                     fused_kernel=use_fused, flat_out=True,
+                                     use_kernels=use_fused, flat_out=True,
                                      set_count=sp.set_count)
             attn_p = scatter_back(attn, sp.canon[e])
 

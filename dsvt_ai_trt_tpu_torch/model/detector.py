@@ -58,20 +58,21 @@ STAGES = ("voxelize", "vfe", "partition", "backbone3d", "bev_scatter",
 @torch.inference_mode()
 def forward(params: Dict, points, num_points, cfg: DSVTConfig,
             with_nms: bool = False, device="cuda") -> Detections:
-    """points: [max_points, 4] (array or tensor); num_points: int or []."""
+    """points: [max_points, 4] (array or tensor); num_points: int or [].
+    The hand-written kernels run where ``cfg.use_pallas`` is set."""
     points, num = _inputs(params, points, num_points, device)
     precision = cfg.precision
+    use_kernels = cfg.use_pallas
     with record_function("voxelize"):
         pillars = voxelize(points, num, cfg)
     with record_function("vfe"):
-        feats = vfe_forward(pillars, params["vfe"], cfg.max_pillars, precision,
-                            cap=cfg.max_points_per_pillar if cfg.use_pallas
-                            else None)
+        feats = vfe_forward(pillars, params["vfe"], cfg,
+                            use_kernels=use_kernels)
     with record_function("partition"):
         wparts, sparts = _partitions(pillars, cfg)
     with record_function("backbone3d"):
         feats = backbone3d_forward(feats, wparts, sparts, params, cfg,
-                                   precision)
+                                   use_kernels=use_kernels)
     with record_function("bev_scatter"):
         if precision == "bf16":
             feats = feats.to(torch.bfloat16)
@@ -87,7 +88,7 @@ def forward(params: Dict, points, num_points, cfg: DSVTConfig,
         with record_function("nms"):
             boxes, count = nms_ops.nms(dets.boxes, dets.count,
                                        cfg.nms_threshold,
-                                       use_kernel=cfg.use_pallas)
+                                       use_kernels=use_kernels)
         dets = Detections(boxes=boxes, count=count)
     occupancy = torch.stack([pillars.point_count, pillars.pillar_count]
                             + [sp.set_count for sp in sparts])
@@ -110,10 +111,10 @@ def forward_debug(params, points, num_points, cfg: DSVTConfig,
     points, num = _inputs(params, points, num_points, device)
     precision = cfg.precision
     pillars = voxelize(points, num, cfg)
-    pfeats = vfe_forward(pillars, params["vfe"], cfg.max_pillars, precision)
+    pfeats = vfe_forward(pillars, params["vfe"], cfg, use_kernels=False)
     wparts, sparts = _partitions(pillars, cfg)
-    dfeats = backbone3d_forward(pfeats, wparts, sparts, params, cfg, precision,
-                                allow_kernels=False)
+    dfeats = backbone3d_forward(pfeats, wparts, sparts, params, cfg,
+                                use_kernels=False)
     bev = map_to_bev(dfeats, pillars.coords, pillars.pillar_valid,
                      (cfg.grid_size[1], cfg.grid_size[0]))
     bev2 = backbone2d_forward(bev, params["backbone2d"], precision)

@@ -6,7 +6,7 @@
   * q is scaled by 1/sqrt(head_dim) before q k^T.
   * the additive key mask is broadcast over query positions and heads.
 
-The fused fast path (bf16/mixed, ``fused_kernel=True``) gathers the packed
+The fused fast path (bf16/mixed, ``use_kernels=True``) gathers the packed
 table into the flat [S*K, 3C] layout and hands it to kernel B1
 (ops/attention_kernel.py).  Unlike the TPU path it keeps K = 36: the 36 ->
 40 storage pad existed for TPU sublane alignment only.
@@ -29,7 +29,7 @@ def gather_rows(table: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
 
 def set_attention_qkv(qkv_p: torch.Tensor, inds: torch.Tensor,
                       key_mask: torch.Tensor, num_heads: int,
-                      precision: str = "fp32", fused_kernel: bool = False,
+                      precision: str = "fp32", use_kernels: bool = False,
                       flat_out: bool = False,
                       set_count: torch.Tensor = None) -> torch.Tensor:
     """Masked set attention over pre-projected, packed pillar Q/K/V.
@@ -45,7 +45,7 @@ def set_attention_qkv(qkv_p: torch.Tensor, inds: torch.Tensor,
     D = C // H
     gt = matmul_dtype(precision)
 
-    if fused_kernel and gt is torch.bfloat16:
+    if use_kernels and gt is torch.bfloat16:
         qkv_flat = gather_rows(qkv_p.to(gt), inds.reshape(-1))
         out = attention_kernel.set_attention_fused_flat(
             qkv_flat, key_mask, H, set_count=set_count)

@@ -13,7 +13,9 @@ with bf16 matmul inputs, f32 accumulation, f32 LN/GELU math (LN eps 1e-5,
 population variance) and an f32 result: x [P, C] f32, a [P, C] bf16.
 
 The CUDA kernel is ``csrc/encoder_epilogue.cu``.  A tensor on the card
-launches it; a tensor on the CPU takes ``encoder_epilogue_plain``.
+launches it; a tensor on the CPU takes ``encoder_epilogue_plain``.  The
+kernel reads its weights in the forms ``kernel_weights`` makes, once, when
+``weights.from_jax_params`` carries a model to the device.
 """
 
 from __future__ import annotations
@@ -44,32 +46,43 @@ def encoder_epilogue_plain(x: torch.Tensor, attn_raw: torch.Tensor, enc: dict,
     return layer_norm(x2 + x, enc["norm_g"], enc["norm_b"], eps)
 
 
+def kernel_weights(enc: dict) -> dict:
+    """The kernel's weight operands of one encoder pass: wo, w1 and w2 in
+    bf16 and the six LayerNorm vectors stacked [6, C] in f32 (ln1, ln2,
+    norm; gamma then beta)."""
+    bf = torch.bfloat16
+    return {"wo_bf16": enc["wo"].to(bf).contiguous(),
+            "ffn_w1_bf16": enc["ffn_w1"].to(bf).contiguous(),
+            "ffn_w2_bf16": enc["ffn_w2"].to(bf).contiguous(),
+            "ln_stack": torch.stack([enc["ln1_g"], enc["ln1_b"], enc["ln2_g"],
+                                     enc["ln2_b"], enc["norm_g"],
+                                     enc["norm_b"]]).float().contiguous()}
+
+
 def encoder_epilogue_cuda(x: torch.Tensor, attn_raw: torch.Tensor, enc: dict,
                           eps: float = 1e-5) -> torch.Tensor:
     """Launch kernel B2 (``csrc/encoder_epilogue.cu``) on the current
-    stream."""
+    stream.  ``enc`` holds the ``kernel_weights`` operands."""
     P, C = x.shape
-    F = enc["ffn_w1"].shape[1]
-    if attn_raw.shape != (P, C) or enc["wo"].shape != (C, C) or \
-            enc["ffn_w2"].shape != (F, C):
+    wo, w1, w2 = enc["wo_bf16"], enc["ffn_w1_bf16"], enc["ffn_w2_bf16"]
+    bo, b1, b2, ln = enc["bo"], enc["ffn_b1"], enc["ffn_b2"], enc["ln_stack"]
+    F = w1.shape[1]
+    if attn_raw.shape != (P, C) or wo.shape != (C, C) or w2.shape != (F, C) \
+            or ln.shape != (6, C):
         raise ValueError(f"encoder_epilogue: x and a [P, C], wo [C, C], "
-                         f"w1 [C, F], w2 [F, C]; got {tuple(x.shape)}, "
-                         f"{tuple(attn_raw.shape)}, {tuple(enc['wo'].shape)}")
+                         f"w1 [C, F], w2 [F, C], ln [6, C]; got "
+                         f"{tuple(x.shape)}, {tuple(attn_raw.shape)}, "
+                         f"{tuple(wo.shape)}, {tuple(ln.shape)}")
     if C % 16 or F % 16:
         raise ValueError(f"encoder_epilogue: C and F must be multiples of 16, "
                          f"got {C} and {F}")
     if x.dtype != torch.float32 or attn_raw.dtype != torch.bfloat16:
         raise ValueError(f"encoder_epilogue: f32 x and bf16 a, got {x.dtype} "
                          f"and {attn_raw.dtype}")
-    bf = torch.bfloat16
-    wo = enc["wo"].to(bf).contiguous()
-    w1 = enc["ffn_w1"].to(bf).contiguous()
-    w2 = enc["ffn_w2"].to(bf).contiguous()
-    bo = enc["bo"].float().contiguous()
-    b1 = enc["ffn_b1"].float().contiguous()
-    b2 = enc["ffn_b2"].float().contiguous()
-    ln = torch.stack([enc["ln1_g"], enc["ln1_b"], enc["ln2_g"], enc["ln2_b"],
-                      enc["norm_g"], enc["norm_b"]]).float().contiguous()
+    if wo.dtype != torch.bfloat16 or ln.dtype != torch.float32 or \
+            bo.dtype != torch.float32:
+        raise ValueError("encoder_epilogue: bf16 weights and f32 biases and "
+                         "LN vectors (kernel_weights)")
     kernels.require_cuda("encoder_epilogue", x, attn_raw, wo, w1, w2, bo, b1,
                          b2, ln)
     out = torch.empty_like(x)

@@ -22,15 +22,16 @@ from .nms_kernel import (box_corners, pairwise_overlap,  # noqa: F401
 THRESHOLD = 1e-8   # helper.h:26, the union clamp
 
 
-def nms(boxes: torch.Tensor, count, iou_threshold: float,
-        use_kernel: bool = True):
+def nms(boxes: torch.Tensor, count, iou_threshold: float, *,
+        use_kernels: bool):
     """Greedy rotated NMS on score-sorted boxes [K, 9] with ``count`` valid
     rows.  Returns (boxes [K, 9] compacted keep-first, keep_count).
-    ``use_kernel=False`` forces the plain overlap on any device."""
+    ``use_kernels`` takes the overlap from kernel B4's wrapper, else from
+    the plain clip on any device."""
     K = boxes.shape[0]
     idx = torch.arange(K, device=boxes.device)
     valid = idx < torch.as_tensor(count, device=boxes.device)
-    overlap = (pairwise_overlap(boxes) if use_kernel
+    overlap = (pairwise_overlap(boxes) if use_kernels
                else pairwise_overlap_clip(boxes))
     sa = boxes[:, 3] * boxes[:, 4]
     union = torch.clamp(sa[:, None] + sa[None, :] - overlap, min=THRESHOLD)

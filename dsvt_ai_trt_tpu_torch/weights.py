@@ -409,8 +409,13 @@ def from_jax_params(params: Dict, device="cuda"):
     HWIO conv kernels become OIHW (``F.conv2d``'s layout); linears stay
     ``[in, out]`` (``x @ w``); deconv kernels are already torch's
     ``ConvTranspose2d`` layout ``[in, out, k, k]``.  Lists stay lists.
+    For a whole model, each encoder pass also gets the weights that the
+    forward pass derives from it, made here once rather than per frame
+    (``model.backbone3d.fold_encoder``: packed q/k/v projections and their
+    bf16 copies, kernel B2's bf16 weights and stacked LayerNorm vectors).
     """
     import torch
+    from .model.backbone3d import fold_encoder  # local, as torch above
 
     def conv(path, leaf):
         arr = np.asarray(leaf, np.float32)
@@ -425,4 +430,9 @@ def from_jax_params(params: Dict, device="cuda"):
             return [walk(v, path) for v in node]
         return conv(path, node)
 
-    return walk(params, ())
+    tree = walk(params, ())
+    if "blocks" in tree:
+        for b, block in enumerate(tree["blocks"]):
+            for e, enc in enumerate(block["enc"]):
+                enc.update(fold_encoder(enc, tree["posembed"][b][e]))
+    return tree

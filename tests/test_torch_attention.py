@@ -87,6 +87,6 @@ def test_fused_path_matches_jax_bf16_path():
     got = set_attention_qkv(torch.from_numpy(qkv_p),
                             torch.from_numpy(inds).long(),
                             torch.from_numpy(mask), H, "bf16",
-                            fused_kernel=True).float().numpy()
+                            use_kernels=True).float().numpy()
     live = mask == 0.0
     np.testing.assert_allclose(got[live], ref[live], atol=5e-3, rtol=2e-2)

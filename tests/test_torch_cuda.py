@@ -95,6 +95,7 @@ def test_encoder_epilogue(dev, P, C, F):
     for key in ("ln1", "ln2", "norm"):
         enc[f"{key}_g"] = 1 + rnd(C, scale=0.02)
         enc[f"{key}_b"] = rnd(C, scale=0.05)
+    enc.update(ek.kernel_weights(enc))
     x = rnd(P, C)
     a = rnd(P, C).bfloat16()
     got = ek.encoder_epilogue(x, a, enc)

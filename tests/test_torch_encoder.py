@@ -73,7 +73,7 @@ def _both_backbones(precision):
     tfeats = torch.from_numpy(np.array(jfeats))
     got = backbone3d_forward(tfeats, [w for w, _ in tparts],
                              [s for _, s in tparts], tparams, cfg,
-                             precision).float().numpy()
+                             use_kernels=True).float().numpy()
     valid = np.asarray(jp.pillar_valid)
     return got, ref, valid
 

@@ -70,12 +70,13 @@ def test_nms_kept_set_matches_jax():
     boxes[count:] = 0
     ref_boxes, ref_count = jax_nms(jnp.asarray(boxes), jnp.int32(count), 0.01,
                                    use_pallas=False)
-    got_boxes, got_count = nms(torch.from_numpy(boxes), count, 0.01)
+    got_boxes, got_count = nms(torch.from_numpy(boxes), count, 0.01,
+                               use_kernels=True)
     assert int(got_count) == int(ref_count)
     assert int(got_count) < count          # something was suppressed
     np.testing.assert_array_equal(got_boxes.numpy(), np.asarray(ref_boxes))
     # forcing the plain overlap gives the same kept set
     plain_boxes, plain_count = nms(torch.from_numpy(boxes), count, 0.01,
-                                   use_kernel=False)
+                                   use_kernels=False)
     assert int(plain_count) == int(got_count)
     assert torch.equal(plain_boxes, got_boxes)

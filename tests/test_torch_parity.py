@@ -2,25 +2,29 @@
 
 A calibrated checkpoint (JAX ``weights.calibrated_raw``), run through
 ``prepare_params`` and carried across; the port's bf16 path (fused, kernels
-B1-B4 as their plain versions) against the JAX bf16 path.
+B1-B4 as their plain versions) against the JAX bf16 path, on a dense and a
+sparse cloud.
 
-At the tiny test configuration the exclusive one-to-one match of
-``eval.parity_ok`` over every box >= 0.3 is not a stable criterion: dozens
-of cells score within bf16 noise of the 0.3 threshold, and NMS at IoU 0.01
-on a 15 m grid flips whole suppression chains on a 2 cm centre drift.  So
-the boxes are held before NMS (NMS is held exactly against JAX in
-test_torch_nms.py, and end to end at fp32 by the golden), with the
-criterion of the JAX package's tools/parity_check.py: every confident box
-(score >= 0.3 + 0.03) on either side exists on the other side (same class,
-BEV IoU >= 0.5), for >= 0.95 of them both ways, with the scores of matched
-boxes within 0.03.  chip_smoke.py applies the same criterion at full width
-on the card (bf16 with the kernels against fp32).
+The gate is the criterion of the JAX package's tools/parity_check.py with
+exact top-k (the port's only top-k), on the boxes before NMS: every box of
+score >= 0.3 + 0.05 on either side exists among the other side's boxes
+(same class, BEV IoU >= 0.5) for >= 0.99 of them both ways, with matched
+scores within 0.03 and centres within 0.3 m.  chip_smoke.py applies the
+same gate at full width on the card (bf16 with the kernels against fp32).
+
+``eval.parity_ok`` (a one-to-one match of every box >= 0.3, recall and
+precision >= 0.95) is not the gate: on seeded random weights the JAX
+package misses it between its own bf16 and fp32 paths, before and after
+NMS.  ``python tests/test_torch_parity.py`` prints that match for the port
+against JAX, the port's bf16 against its fp32, and JAX's bf16 against its
+fp32, on three clouds.
 
 The port's own ``calibrated_raw`` equals the JAX one up to the float
 rounding of the calibration pass.
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -28,18 +32,27 @@ import pytest
 from conftest import make_cloud, tiny_config
 
 from dsvt_ai_trt_tpu import weights as jax_weights
-from dsvt_ai_trt_tpu.eval import coverage
+from dsvt_ai_trt_tpu.eval import coverage, match_boxes
 from dsvt_ai_trt_tpu.model.detector import forward_jit as jax_forward
 from dsvt_ai_trt_tpu_torch import weights
 from dsvt_ai_trt_tpu_torch.model.detector import forward
 
+MIN_SCORE = 0.3 + 0.05      # tools/parity_check.py: threshold + margin
+MIN_COVERAGE = 0.99         # its gate with exact top-k
+CLOUDS = {"dense": (77, 1500), "sparse": (78, 400), "mid": (79, 800)}
+
+
+def _calibrated(cloud):
+    cfg = tiny_config()
+    seed, n_points = CLOUDS[cloud]
+    pts, n = make_cloud(np.random.default_rng(seed), cfg, n_points)
+    raw = jax_weights.calibrated_raw(cfg, pts, n, seed=0, n_boxes=12)
+    return cfg, pts, n, raw
+
 
 @pytest.fixture(scope="module")
 def calibrated():
-    cfg = tiny_config()
-    pts, n = make_cloud(np.random.default_rng(77), cfg, 1500)
-    raw = jax_weights.calibrated_raw(cfg, pts, n, seed=0, n_boxes=12)
-    return cfg, pts, n, raw
+    return _calibrated("dense")
 
 
 def _boxes(dets):
@@ -47,22 +60,31 @@ def _boxes(dets):
     return np.asarray(dets.boxes)[:count]
 
 
-MARGIN = 0.03
+def _port_and_jax(cfg, pts, n, raw, precision, with_nms):
+    c = dataclasses.replace(cfg, precision=precision)
+    params = jax_weights.prepare_params(raw, c)
+    ref = _boxes(jax_forward(params, pts, n, c, with_nms))
+    got = _boxes(forward(weights.from_jax_params(params, "cpu"), pts, n, c,
+                         with_nms=with_nms, device="cpu"))
+    return got, ref
+
+
+def _assert_parity(got, ref):
+    recall = coverage(ref[ref[:, 8] >= MIN_SCORE], got)
+    precision = coverage(got[got[:, 8] >= MIN_SCORE], ref)
+    assert recall["n"] >= 10 and precision["n"] >= 10
+    assert recall["coverage"] >= MIN_COVERAGE, recall
+    assert precision["coverage"] >= MIN_COVERAGE, precision
+    assert max(recall["max_score_err"], precision["max_score_err"]) <= 0.03
+    assert max(recall["max_center_err"], precision["max_center_err"]) <= 0.3
 
 
 def test_bf16_boxes_match_jax(calibrated):
-    cfg, pts, n, raw = calibrated
-    cfg16 = dataclasses.replace(cfg, precision="bf16")
-    params = jax_weights.prepare_params(raw, cfg16)
-    ref = _boxes(jax_forward(params, pts, n, cfg16, False))
-    got = _boxes(forward(weights.from_jax_params(params, "cpu"), pts, n, cfg16,
-                         with_nms=False, device="cpu"))
-    recall = coverage(ref[ref[:, 8] >= 0.3 + MARGIN], got)
-    precision = coverage(got[got[:, 8] >= 0.3 + MARGIN], ref)
-    assert recall["n"] >= 10 and precision["n"] >= 10
-    assert recall["coverage"] >= 0.95, recall
-    assert precision["coverage"] >= 0.95, precision
-    assert max(recall["max_score_err"], precision["max_score_err"]) <= 0.03
+    _assert_parity(*_port_and_jax(*calibrated, "bf16", False))
+
+
+def test_bf16_boxes_match_jax_sparse_cloud():
+    _assert_parity(*_port_and_jax(*_calibrated("sparse"), "bf16", False))
 
 
 def test_calibrated_raw_matches_jax(calibrated):
@@ -76,3 +98,29 @@ def test_calibrated_raw_matches_jax(calibrated):
             np.testing.assert_allclose(ours[k], raw[k], atol=1e-4)
         else:
             np.testing.assert_array_equal(ours[k], raw[k], err_msg=k)
+
+
+def report():
+    """One JSON line per cloud, stage (before / after NMS) and pair: the
+    gate's coverage and eval.match_boxes recall and precision."""
+    for cloud in CLOUDS:
+        cfg, pts, n, raw = _calibrated(cloud)
+        for with_nms in (False, True):
+            p16, j16 = _port_and_jax(cfg, pts, n, raw, "bf16", with_nms)
+            p32, j32 = _port_and_jax(cfg, pts, n, raw, "fp32", with_nms)
+            for pair, a, b in (("port_bf16_vs_jax_bf16", p16, j16),
+                               ("port_bf16_vs_port_fp32", p16, p32),
+                               ("jax_bf16_vs_jax_fp32", j16, j32)):
+                m = match_boxes(a, b)
+                print(json.dumps({
+                    "cloud": cloud, "nms": with_nms, "pair": pair,
+                    "boxes": [len(a), len(b)],
+                    "coverage": [coverage(b[b[:, 8] >= MIN_SCORE], a)[
+                        "coverage"], coverage(a[a[:, 8] >= MIN_SCORE], b)[
+                        "coverage"]],
+                    "match_recall": m["recall"],
+                    "match_precision": m["precision"]}))
+
+
+if __name__ == "__main__":
+    report()

@@ -85,7 +85,6 @@ def test_vfe_matches_jax_reference(use_kernel_path):
                              allow_pallas=False))
     tp = voxelize(torch.from_numpy(pts), int(n), cfg)
     tparams = weights.from_jax_params(params, "cpu")
-    got = vfe_forward(tp, tparams["vfe"], cfg.max_pillars, "fp32",
-                      cap=cfg.max_points_per_pillar if use_kernel_path else None)
+    got = vfe_forward(tp, tparams["vfe"], cfg, use_kernels=use_kernel_path)
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=1e-5)
     assert np.count_nonzero(np.abs(ref).sum(1)) == int(jp.pillar_count)

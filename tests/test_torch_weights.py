@@ -61,7 +61,8 @@ def test_from_jax_params_shapes_and_device():
     t = weights.from_jax_params(p, "cpu")
     for path, leaf in _leaves(t):
         assert isinstance(leaf, torch.Tensor) and leaf.device.type == "cpu"
-        assert leaf.dtype == torch.float32, path
+        want = torch.bfloat16 if path[-1].endswith("_bf16") else torch.float32
+        assert leaf.dtype == want, path
     # HWIO conv kernels become OIHW; linears and deconvs keep their layout
     hw = p["backbone2d"]["stages"][0][0]["conv1_w"]
     np.testing.assert_array_equal(
@@ -74,6 +75,16 @@ def test_from_jax_params_shapes_and_device():
     np.testing.assert_array_equal(t["backbone2d"]["deblocks"][1]["w"].numpy(),
                                   p["backbone2d"]["deblocks"][1]["w"])
     assert len(t["blocks"]) == cfg.num_blocks
+    # each encoder pass carries its folded weights, made once here
+    enc, mlp = t["blocks"][1]["enc"][0], t["posembed"][1][0]
+    C = cfg.d_model
+    assert tuple(enc["w_qkv"].shape) == tuple(enc["w_pos"].shape) == (C, 3 * C)
+    torch.testing.assert_close(enc["w_qkv"][:, C:2 * C], enc["wk"])
+    torch.testing.assert_close(enc["w_pos"][:, :C], mlp["w2"] @ enc["wq"])
+    assert torch.all(enc["w_pos"][:, 2 * C:] == 0)
+    torch.testing.assert_close(enc["b_qkv"][2 * C:], enc["bv"])
+    assert torch.equal(enc["wo_bf16"], enc["wo"].bfloat16())
+    assert torch.equal(enc["ln_stack"][5], enc["norm_b"])
 
 
 def test_port_imports_no_jax():
