@@ -16,7 +16,10 @@ Phases (any failure exits non-zero):
      (segment_max / set_attention / encoder_epilogue / rotated_overlap);
   5. hold each kernel against its plain PyTorch version on the inputs the
      main path gave it, and time kernel, plain version and, where one
-     exists, the PyTorch library call computing the same function;
+     exists, the PyTorch library call computing the same function: by CUDA
+     events around back-to-back calls (host dispatch included), and for the
+     kernel and the library call also device-only (``device_ms``); B2 also
+     at 1, 132 and 264 tiles of 64 rows;
   6. end-to-end checks: the tiny configuration's fp32 boxes on the card
      against ``tests/goldens/tiny_seed0.json``, and box parity of the bf16
      kernel path against fp32, both on the card, on checkpoints calibrated
@@ -43,6 +46,12 @@ BF16_FLOPS = 989e12                # dense tensor-core bf16
 F32_FLOPS = 67e12                  # f32 outside the tensor cores
 PER_FRAME = {"segment_max": 2, "set_attention": 8, "encoder_epilogue": 8,
              "rotated_overlap": 1}
+SYMBOLS = {                        # the __global__ function of each kernel
+    "segment_max": "segment_max_kernel",
+    "set_attention": "set_attention_kernel",
+    "encoder_epilogue": "encoder_epilogue_kernel",
+    "rotated_overlap": "rotated_overlap_kernel",
+}
 REPLACES = {
     "segment_max": "dsvt_ai_trt_tpu/ops/segment_pallas.py:125",
     "set_attention": "dsvt_ai_trt_tpu/ops/attention_pallas.py:183",
@@ -129,6 +138,69 @@ def cuda_ms(fn, reps=20, warmup=3):
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def _profiled_ms(fn, match, reps):
+    """Summed device time of reps calls of fn() from torch.profiler's
+    device events (only kernels whose name contains `match`, if given), or
+    None when the profiler reported no such event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    on_dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and (match is None or match in e.name)]
+    if len(on_dev) < reps:
+        return None
+    return sum(e.time_range.elapsed_us() for e in on_dev) / 1e3
+
+
+def _graph_ms(fn, reps, replays=5):
+    """Device ms of reps calls of fn() captured in one CUDA graph, replayed
+    `replays` times between CUDA events: no host work between launches."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # capture wants a warm side stream
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / replays
+
+
+def device_ms(fn, match=None, reps=20, warmup=3):
+    """Device-only ms per call of fn(), without the host's dispatch (wrapper
+    checks, allocation, the ctypes call): from torch.profiler's device
+    events (with `match`, only the kernels whose name contains it), tried
+    three times because a profiling window now and then reports no device
+    event at all; else from a CUDA graph of `reps` captured calls, which
+    also counts any small kernels the wrapper launches around the kernel.
+    Returns (ms, "profiler" or "cuda_graph")."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        total = _profiled_ms(fn, match, reps)
+        if total is not None:
+            return total / reps, "profiler"
+    return _graph_ms(fn, reps) / reps, "cuda_graph"
 
 
 def bound_ms(nbytes, ops, peak):
@@ -265,8 +337,12 @@ def profile_frame(engine, pts, n):
                                     key=lambda kv: -kv[1])[:4])
     busy = sum(v[0] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    ours = {name: {"ms": sum(v[0] for k, v in by_name.items() if sym in k),
+                   "calls": sum(v[1] for k, v in by_name.items() if sym in k)}
+            for name, sym in SYMBOLS.items()}
     return {"wall_ms": wall, "device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / wall, "stages": stages,
+            "kernels": ours,
             "top_device": [{"name": k[:90], "ms": v[0], "calls": v[1]}
                            for k, v in top]}
 
@@ -286,8 +362,8 @@ def check_segment_max(recorder, frame):
     from dsvt_ai_trt_tpu_torch.ops import segment
     calls = [c for c in recorder.calls["segment_max"] if c[0] == frame]
     check(len(calls) == 2, f"segment_max: {len(calls)} calls for {frame}")
-    out = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-           "max_abs_err": 0.0, "calls": []}
+    out = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "bound_ms": 0.0, "max_abs_err": 0.0, "calls": []}
     ops_total = bytes_total = 0
     for _fr, args, kw in calls:
         feats, is_start, cap = args[:3]
@@ -315,14 +391,18 @@ def check_segment_max(recorder, frame):
         t_p = cuda_ms(lambda: segment.segmented_max_plain(feats, is_start, cap,
                                                           starts_only))
         t_l = cuda_ms(lib_call)
+        t_d, how = device_ms(lambda: segment.segmented_max_cuda(
+            feats, is_start, cap, starts_only), SYMBOLS["segment_max"])
         nbytes = 2 * N * C * feats.element_size() + N
         ops = N * C * (1 if starts_only else 2)
         b, _by = bound_ms(nbytes, ops, F32_FLOPS)
         out["calls"].append({"N": N, "C": C, "dtype": str(feats.dtype),
                              "starts_only": bool(starts_only), "ms": t_k,
+                             "device_ms": t_d, "device_ms_by": how,
                              "plain_ms": t_p, "library_ms": t_l,
                              "bound_ms": b, "bytes": nbytes})
         out["ms"] += t_k
+        out["device_ms"] += t_d
         out["plain_ms"] += t_p
         out["library_ms"] += t_l
         bytes_total += nbytes
@@ -368,12 +448,19 @@ def check_set_attention(recorder, frames_to_check):
         t_p = cuda_ms(lambda: ak.set_attention_plain(qkv, mask, H, count))
         t_l = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=bmask))
+        t_d, how = device_ms(
+            lambda: ak.set_attention_cuda(qkv, mask, H, count),
+            SYMBOLS["set_attention"])
+        t_ld, how_l = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=bmask))
         nbytes = (n_live * K * 3 * C * 2 + S * K * 4 + S * K * C * 2)
         ops = n_live * H * 4 * K * K * D
         b, by = bound_ms(nbytes, ops, BF16_FLOPS)
-        res = {"ms": t_k, "plain_ms": t_p, "library_ms": t_l, "bound_ms": b,
-               "bound_by": by, "S": S, "K": K, "C": C, "H": H,
-               "set_count": n_live}
+        res = {"ms": t_k, "device_ms": t_d, "device_ms_by": how,
+               "plain_ms": t_p, "library_ms": t_l, "library_device_ms": t_ld,
+               "library_device_ms_by": how_l, "bound_ms": b,
+               "bound_by": by, "bytes": nbytes, "ops": ops, "S": S, "K": K,
+               "C": C, "H": H, "set_count": n_live}
     res["max_abs_err"] = max_err
     return res
 
@@ -394,11 +481,27 @@ def check_encoder_epilogue(recorder, frame):
     Fd = enc["ffn_w1"].shape[1]
     t_k = cuda_ms(lambda: ek.encoder_epilogue_cuda(x, a, enc, eps))
     t_p = cuda_ms(lambda: ek.encoder_epilogue_plain(x, a, enc, eps))
+    t_d, how = device_ms(lambda: ek.encoder_epilogue_cuda(x, a, enc, eps),
+                         SYMBOLS["encoder_epilogue"])
     nbytes = P * C * (4 + 2 + 4) + (C * C + 2 * C * Fd) * 2
     ops = 2 * P * (C * C + 2 * C * Fd)
     b, by = bound_ms(nbytes, ops, BF16_FLOPS)
-    return {"ms": t_k, "plain_ms": t_p, "library_ms": None, "bound_ms": b,
-            "bound_by": by, "P": P, "C": C, "F": Fd,
+    # device ms against the number of 64-row tiles (one, one per SM, two per
+    # SM) on seeded rows of the same widths: flat means a tile's own latency
+    # bounds the call, proportional means the SMs' throughput does
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    scaling = {}
+    for rows in (64, 64 * sms, 128 * sms):
+        xs = torch.randn(rows, C, device="cuda", generator=gen)
+        as_ = torch.randn(rows, C, device="cuda", generator=gen).bfloat16()
+        scaling[rows] = device_ms(
+            lambda: ek.encoder_epilogue_cuda(xs, as_, enc, eps),
+            SYMBOLS["encoder_epilogue"])[0]
+    return {"ms": t_k, "device_ms": t_d, "device_ms_by": how,
+            "plain_ms": t_p, "library_ms": None, "bound_ms": b,
+            "bound_by": by, "bytes": nbytes, "ops": ops,
+            "device_ms_by_rows": scaling, "P": P, "C": C, "F": Fd,
             "max_abs_err": float((got - ref).abs().max())}
 
 
@@ -424,12 +527,15 @@ def check_rotated_overlap(recorder, frame):
           f"nms kept set differs: kernel {int(kc)} vs plain {int(pc)}")
     t_k = cuda_ms(lambda: nk.pairwise_overlap_cuda(boxes))
     t_p = cuda_ms(lambda: nk.pairwise_overlap_clip(boxes), reps=3, warmup=1)
+    t_d, how = device_ms(lambda: nk.pairwise_overlap_cuda(boxes),
+                         SYMBOLS["rotated_overlap"])
     pairs = n * (n - 1) // 2
     # ~300 f32 operations per upper pair: 4 clip passes over <= 8 vertices
     # (two cross products, a compare, an interpolation each) + the shoelace
     nbytes = n * 9 * 4 + n * n * 4
     b, by = bound_ms(nbytes, pairs * 300, F32_FLOPS)
-    return {"ms": t_k, "plain_ms": t_p, "library_ms": None, "bound_ms": b,
+    return {"ms": t_k, "device_ms": t_d, "device_ms_by": how,
+            "plain_ms": t_p, "library_ms": None, "bound_ms": b,
             "bound_by": by, "N": n, "boxes_in": count, "nms_kept": int(kc),
             "max_abs_err": float((got[iu[0], iu[1]]
                                   - ref[iu[0], iu[1]]).abs().max())}
@@ -556,8 +662,8 @@ def _main(torch) -> int:
     log({"phase": "launches", "counts": counts, "expected": want})
     check(counts == want, f"launch counts {counts} != {want}")
 
-    log({"phase": "profile", "frame": "dense_seed0",
-         **profile_frame(engine, *frames["dense_seed0"])})
+    prof = profile_frame(engine, *frames["dense_seed0"])
+    log({"phase": "profile", "frame": "dense_seed0", **prof})
 
     results = {
         "segment_max": check_segment_max(recorder, "dense_seed0"),
@@ -567,7 +673,14 @@ def _main(torch) -> int:
         "rotated_overlap": check_rotated_overlap(recorder, "dense_seed0"),
     }
     for name, res in results.items():
-        log({"phase": "kernel", "name": name, "kernel_ms": res["ms"], **res})
+        # the same kernels' device ms in the profiled frame, per launch
+        # there (B3: its two calls together, as in "ms" and "device_ms")
+        seen = prof["kernels"][name]
+        in_frame = seen["ms"] / max(seen["calls"], 1) * (
+            2 if name == "segment_max" else 1)
+        log({"phase": "kernel", "name": name, "kernel_ms": res["ms"],
+             "frame_profile_ms": in_frame,
+             "bound_share": res["bound_ms"] / res["device_ms"], **res})
 
     log({"phase": "golden", **check_tiny_golden()})
     check_parity(frames)
@@ -578,7 +691,8 @@ def _main(torch) -> int:
         "name": name, "route": "cuda", "source": sources[name],
         "replaces": REPLACES[name], "launches": counts[name],
         "max_abs_err": results[name]["max_abs_err"],
-        "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"],
+        "ms": results[name]["ms"], "device_ms": results[name]["device_ms"],
+        "plain_ms": results[name]["plain_ms"],
         "bound_ms": results[name]["bound_ms"],
         "bound_by": results[name]["bound_by"],
         "library_ms": results[name]["library_ms"]} for name in PER_FRAME]}

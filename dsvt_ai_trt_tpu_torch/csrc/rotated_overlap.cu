@@ -19,7 +19,13 @@
 // masked buffer: each live vertex emits itself when inside and the edge
 // intersection when its edge crosses.  The buffer keeps 64 slots, the TPU
 // kernel's bound, so no input can overflow it.  Then a shoelace sum over
-// the polygon in traversal order; fewer than 3 vertices give 0.
+// the polygon in traversal order; fewer than 3 vertices give 0.  Every
+// product, sum and quotient is rounded on its own (__fmul_rn and friends:
+// nothing is contracted into a fused multiply-add), as PyTorch's separate
+// elementwise ops round the plain version's, so both take the same inside
+// tests and sum the same terms in the same order.  With contraction the two
+// differed by up to ~1e-4 m^2 at 50-60 m coordinates, where one ulp of a
+// shoelace term x*y is 2.4e-4.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -27,6 +33,12 @@
 namespace {
 
 constexpr int MAXV = 64;
+
+// ex * dy - ey * dx, each product rounded before the difference
+__device__ __forceinline__ float cross(float ex, float ey, float dx,
+                                       float dy) {
+  return __fsub_rn(__fmul_rn(ex, dy), __fmul_rn(ey, dx));
+}
 
 __device__ float clip_area(const float* ca, const float* cb) {
   float px[MAXV], py[MAXV], qx[MAXV], qy[MAXV];
@@ -41,8 +53,8 @@ __device__ float clip_area(const float* ca, const float* cb) {
     int m = 0;
     for (int i = 0; i < n; ++i) {
       const int j = (i + 1 == n) ? 0 : i + 1;
-      const float d_cur = ex * (py[i] - ay) - ey * (px[i] - ax);
-      const float d_nxt = ex * (py[j] - ay) - ey * (px[j] - ax);
+      const float d_cur = cross(ex, ey, px[i] - ax, py[i] - ay);
+      const float d_nxt = cross(ex, ey, px[j] - ax, py[j] - ay);
       const bool inside = d_cur >= 0.0f;
       if (inside && m < MAXV) {
         qx[m] = px[i];
@@ -50,9 +62,9 @@ __device__ float clip_area(const float* ca, const float* cb) {
         ++m;
       }
       if (inside != (d_nxt >= 0.0f) && m < MAXV) {
-        const float t = d_cur / (d_cur - d_nxt);
-        qx[m] = px[i] + t * (px[j] - px[i]);
-        qy[m] = py[i] + t * (py[j] - py[i]);
+        const float t = __fdiv_rn(d_cur, d_cur - d_nxt);
+        qx[m] = __fadd_rn(px[i], __fmul_rn(t, px[j] - px[i]));
+        qy[m] = __fadd_rn(py[i], __fmul_rn(t, py[j] - py[i]));
         ++m;
       }
     }
@@ -66,7 +78,8 @@ __device__ float clip_area(const float* ca, const float* cb) {
   float area = 0.0f;
   for (int i = 0; i < n; ++i) {
     const int j = (i + 1 == n) ? 0 : i + 1;
-    area += px[i] * py[j] - px[j] * py[i];
+    area = __fadd_rn(area, __fsub_rn(__fmul_rn(px[i], py[j]),
+                                     __fmul_rn(px[j], py[i])));
   }
   return fabsf(area) * 0.5f;
 }

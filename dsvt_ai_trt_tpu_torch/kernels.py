@@ -155,8 +155,9 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
 
 
-def require_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """Kernel inputs: on one CUDA device and contiguous."""
+def require_cuda(name: str, *tensors: torch.Tensor, align: int = 1) -> None:
+    """Kernel inputs: on one CUDA device, contiguous, and starting on an
+    ``align``-byte boundary (16 for kernels that copy 16-byte vectors)."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":
@@ -164,3 +165,6 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
                              f"device, got {[str(u.device) for u in tensors]}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
+        if t.data_ptr() % align:
+            raise ValueError(f"{name}: inputs must start on a {align}-byte "
+                             f"boundary")

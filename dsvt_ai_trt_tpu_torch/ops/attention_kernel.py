@@ -8,6 +8,8 @@ set_attention_fused_flat`` (body ``_attn_kernel_pairs`` ->
 ``set_count``.  Output ``[S*K, C]`` in the table's type:
 
   * scale 1/sqrt(D), softmax in f32 with its max taken per (head, set);
+  * the unnormalised weights are rounded to bf16 for the V product, as the
+    Pallas kernel does; the row sum and the 1/sum scale stay f32;
   * masked keys contribute exactly nothing (their V rows and their share of
     the row sum are dropped);
   * a set whose keys are all dead gives exact zeros, and so does every set
@@ -37,8 +39,9 @@ def _count_tensor(set_count, S: int, device) -> torch.Tensor:
 
 def set_attention_plain(qkv_flat: torch.Tensor, key_mask: torch.Tensor,
                         num_heads: int, set_count=None) -> torch.Tensor:
-    """Masked per-set attention on [S, K, H, D] tensors, in f32, with the
-    kernel's zero rules."""
+    """Masked per-set attention on [S, K, H, D] tensors with the kernel's
+    roundings and zero rules: f32 logits and softmax, bf16 weights into the
+    V product, f32 1/sum."""
     S, K = key_mask.shape
     C = qkv_flat.shape[1] // 3
     H = num_heads
@@ -52,9 +55,10 @@ def set_attention_plain(qkv_flat: torch.Tensor, key_mask: torch.Tensor,
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     e = torch.exp(logits - m)                                   # dead -> 0
     s = e.sum(dim=-1, keepdim=True)
-    p = torch.where(s > 0, e / torch.where(s > 0, s, torch.ones_like(s)),
-                    torch.zeros_like(e))
-    out = torch.einsum("shqk,skhd->sqhd", p, v)                 # [S, K, H, D]
+    rinv = torch.where(s > 0, 1.0 / torch.where(s > 0, s, torch.ones_like(s)),
+                       torch.zeros_like(s))                     # [S, H, K, 1]
+    out = torch.einsum("shqk,skhd->sqhd", e.to(torch.bfloat16).float(), v)
+    out = out * rinv.permute(0, 2, 1, 3)                        # [S, K, H, D]
     count = _count_tensor(set_count, S, qkv_flat.device)
     alive = torch.arange(S, device=qkv_flat.device) < count
     out = torch.where(alive[:, None, None, None], out, torch.zeros_like(out))
@@ -73,11 +77,13 @@ def set_attention_cuda(qkv_flat: torch.Tensor, key_mask: torch.Tensor,
         raise ValueError("set_attention: bf16 qkv_flat and f32 key_mask, got "
                          f"{qkv_flat.dtype} and {key_mask.dtype}")
     C = C3 // 3
-    if C3 % 3 or C % 8 or C % num_heads or (C // num_heads) % 2:
-        raise ValueError(f"set_attention: needs C % 8 == 0 and an even head "
-                         f"width, got C={C3 / 3} with {num_heads} heads")
+    if C3 % 3 or C % num_heads or (C // num_heads) % 8 or not 0 < K <= 64:
+        raise ValueError(f"set_attention: needs a head width that is a "
+                         f"multiple of 8 and K <= 64, got C={C3 / 3} with "
+                         f"{num_heads} heads and K={K}")
     count = _count_tensor(set_count, S, qkv_flat.device)
     kernels.require_cuda("set_attention", qkv_flat, key_mask, count)
+    kernels.require_cuda("set_attention", qkv_flat, align=16)
     out = torch.empty((S * K, C), dtype=qkv_flat.dtype, device=qkv_flat.device)
     if S == 0:
         return out

@@ -14,8 +14,9 @@ population variance) and an f32 result: x [P, C] f32, a [P, C] bf16.
 
 The CUDA kernel is ``csrc/encoder_epilogue.cu``.  A tensor on the card
 launches it; a tensor on the CPU takes ``encoder_epilogue_plain``.  The
-kernel reads its weights in the forms ``kernel_weights`` makes, once, when
-``weights.from_jax_params`` carries a model to the device.
+kernel reads its weights in the panel layout ``kernel_weights`` makes,
+once, when ``weights.from_jax_params`` carries a model to the device; the
+plain version reads ``wo``, ``ffn_w1`` and ``ffn_w2`` as they are.
 """
 
 from __future__ import annotations
@@ -46,17 +47,35 @@ def encoder_epilogue_plain(x: torch.Tensor, attn_raw: torch.Tensor, enc: dict,
     return layer_norm(x2 + x, enc["norm_g"], enc["norm_b"], eps)
 
 
+def panel_layout(w: torch.Tensor, C: int) -> torch.Tensor:
+    """W [K, N] -> bf16 [N/C, K/32, C, 32]: panels of C output columns, each
+    cut into k-slabs of 32 rows stored transposed, the order in which kernel
+    B2 streams them through shared memory (csrc/encoder_epilogue.cu)."""
+    K, N = w.shape
+    return (w.to(torch.bfloat16).reshape(K // 32, 32, N // C, C)
+            .permute(2, 0, 3, 1).contiguous())
+
+
+def kernel_fits(C: int, F: int) -> bool:
+    """The widths kernel B2 takes: C a multiple of 32 up to 256, F a
+    multiple of C."""
+    return C % 32 == 0 and 0 < C <= 256 and F >= C and F % C == 0
+
+
 def kernel_weights(enc: dict) -> dict:
     """The kernel's weight operands of one encoder pass: wo, w1 and w2 in
-    bf16 and the six LayerNorm vectors stacked [6, C] in f32 (ln1, ln2,
-    norm; gamma then beta)."""
-    bf = torch.bfloat16
-    return {"wo_bf16": enc["wo"].to(bf).contiguous(),
-            "ffn_w1_bf16": enc["ffn_w1"].to(bf).contiguous(),
-            "ffn_w2_bf16": enc["ffn_w2"].to(bf).contiguous(),
-            "ln_stack": torch.stack([enc["ln1_g"], enc["ln1_b"], enc["ln2_g"],
-                                     enc["ln2_b"], enc["norm_g"],
-                                     enc["norm_b"]]).float().contiguous()}
+    the bf16 panel layout (when the widths fit the kernel) and the six
+    LayerNorm vectors stacked [6, C] in f32 (ln1, ln2, norm; gamma then
+    beta)."""
+    C, F = enc["ffn_w1"].shape
+    out = {"ln_stack": torch.stack([enc["ln1_g"], enc["ln1_b"], enc["ln2_g"],
+                                    enc["ln2_b"], enc["norm_g"],
+                                    enc["norm_b"]]).float().contiguous()}
+    if kernel_fits(C, F):
+        out.update(wo_panels_bf16=panel_layout(enc["wo"], C),
+                   ffn_w1_panels_bf16=panel_layout(enc["ffn_w1"], C),
+                   ffn_w2_panels_bf16=panel_layout(enc["ffn_w2"], C))
+    return out
 
 
 def encoder_epilogue_cuda(x: torch.Tensor, attn_raw: torch.Tensor, enc: dict,
@@ -64,18 +83,22 @@ def encoder_epilogue_cuda(x: torch.Tensor, attn_raw: torch.Tensor, enc: dict,
     """Launch kernel B2 (``csrc/encoder_epilogue.cu``) on the current
     stream.  ``enc`` holds the ``kernel_weights`` operands."""
     P, C = x.shape
-    wo, w1, w2 = enc["wo_bf16"], enc["ffn_w1_bf16"], enc["ffn_w2_bf16"]
+    F = enc["ffn_b1"].shape[0]
+    if not kernel_fits(C, F):
+        raise ValueError(f"encoder_epilogue: the kernel needs C a multiple "
+                         f"of 32 up to 256 and F a multiple of C, got C={C}, "
+                         f"F={F}")
+    wo, w1, w2 = (enc["wo_panels_bf16"], enc["ffn_w1_panels_bf16"],
+                  enc["ffn_w2_panels_bf16"])
     bo, b1, b2, ln = enc["bo"], enc["ffn_b1"], enc["ffn_b2"], enc["ln_stack"]
-    F = w1.shape[1]
-    if attn_raw.shape != (P, C) or wo.shape != (C, C) or w2.shape != (F, C) \
-            or ln.shape != (6, C):
-        raise ValueError(f"encoder_epilogue: x and a [P, C], wo [C, C], "
-                         f"w1 [C, F], w2 [F, C], ln [6, C]; got "
-                         f"{tuple(x.shape)}, {tuple(attn_raw.shape)}, "
-                         f"{tuple(wo.shape)}, {tuple(ln.shape)}")
-    if C % 16 or F % 16:
-        raise ValueError(f"encoder_epilogue: C and F must be multiples of 16, "
-                         f"got {C} and {F}")
+    want = {"wo": (1, C // 32, C, 32), "w1": (F // C, C // 32, C, 32),
+            "w2": (1, F // 32, C, 32)}
+    got = {"wo": tuple(wo.shape), "w1": tuple(w1.shape),
+           "w2": tuple(w2.shape)}
+    if attn_raw.shape != (P, C) or got != want or ln.shape != (6, C):
+        raise ValueError(f"encoder_epilogue: x and a [P, C], panel weights "
+                         f"{want}, ln [6, C]; got {tuple(x.shape)}, "
+                         f"{tuple(attn_raw.shape)}, {got}, {tuple(ln.shape)}")
     if x.dtype != torch.float32 or attn_raw.dtype != torch.bfloat16:
         raise ValueError(f"encoder_epilogue: f32 x and bf16 a, got {x.dtype} "
                          f"and {attn_raw.dtype}")
@@ -84,7 +107,7 @@ def encoder_epilogue_cuda(x: torch.Tensor, attn_raw: torch.Tensor, enc: dict,
         raise ValueError("encoder_epilogue: bf16 weights and f32 biases and "
                          "LN vectors (kernel_weights)")
     kernels.require_cuda("encoder_epilogue", x, attn_raw, wo, w1, w2, bo, b1,
-                         b2, ln)
+                         b2, ln, align=16)
     out = torch.empty_like(x)
     if P == 0:
         return out

@@ -5,8 +5,8 @@ The same gathered bf16 table goes through ``attention_pallas.
 set_attention_fused_flat(..., interpret=True)`` and the port's
 ``set_attention_plain``.  On live slots they agree to bf16 rounding (atol
 5e-3, rtol 2e-2, the tolerance of tests/test_attention_pallas.py: both run
-bf16 inputs with an f32 softmax; the Pallas kernel rounds the softmax
-weights to bf16 before the V product, the port keeps them f32).  An
+bf16 inputs with an f32 softmax and round the unnormalised softmax weights
+to bf16 before the V product; the sums run in different orders).  An
 all-dead set and every set past ``set_count`` are exact zeros; the cases
 put ``set_count`` inside a kernel block and at 0.  The fp32 path
 (``set_attention_qkv``) is held at 1e-5.

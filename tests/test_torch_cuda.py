@@ -63,14 +63,20 @@ def test_segment_max(dev, dtype, starts_only, N, C, cap):
     assert torch.equal(got[defined], ref[defined])
 
 
-@pytest.mark.parametrize("S,K,C,H", [(800, 36, 192, 8), (64, 12, 32, 4)])
+@pytest.mark.parametrize("S,K,C,H", [(800, 36, 192, 8), (64, 12, 32, 4),
+                                     (50, 7, 96, 4)])
 @pytest.mark.parametrize("count", [None, 19, 0])
 def test_set_attention(dev, S, K, C, H, count):
+    """Main-path tiling (K=36: 3 query m-tiles, 5 key n-tiles, D=24 as a
+    k16 + k8 pair), D=8 heads, and K=7 with D=24 (one ragged tile each
+    way).  count=19 ends the live sets inside a block's run of sets."""
     rng = np.random.default_rng(S + K)
     qkv = torch.from_numpy(rng.normal(0, 1, (S * K, 3 * C)).astype(
         np.float32)).to(dev, torch.bfloat16)
     mask = np.where(rng.uniform(size=(S, K)) < 0.2, NEG, 0.0).astype(np.float32)
     mask[3] = NEG                         # an all-dead set
+    mask[5] = NEG                         # a set with exactly one live key
+    mask[5, K // 2] = 0.0
     mask = torch.from_numpy(mask).to(dev)
     n_live = S if count is None else count
     cnt = None if count is None else torch.tensor(count, device=dev)
@@ -81,10 +87,18 @@ def test_set_attention(dev, S, K, C, H, count):
                                atol=5e-3, rtol=2e-2)
     out = got.view(S, K, C)
     assert torch.all(out[3] == 0) and torch.all(out[n_live:] == 0)
+    if n_live > 5:                        # one live key: its V row, rounded
+        v = qkv.view(S, K, 3 * C)[5, K // 2, 2 * C:]
+        assert torch.equal(out[5], v.expand(K, C))
 
 
-@pytest.mark.parametrize("P,C,F", [(10000, 192, 384), (37, 32, 64)])
+@pytest.mark.parametrize("P,C,F", [(10000, 192, 384), (37, 32, 64)] + [
+    (P, C, F) for C, F in ((192, 384), (32, 64))
+    for P in (10000, 37, 64, 65, 10001) if (P, C) not in ((10000, 192),
+                                                          (37, 32))])
 def test_encoder_epilogue(dev, P, C, F):
+    """64-row tiles: one partial tile (37), exactly one (64), one row past
+    a tile (65), the main path's 157 tiles (10000) and one row more."""
     g = torch.Generator(device="cpu").manual_seed(P)
 
     def rnd(*shape, scale=1.0):
@@ -98,7 +112,9 @@ def test_encoder_epilogue(dev, P, C, F):
     enc.update(ek.kernel_weights(enc))
     x = rnd(P, C)
     a = rnd(P, C).bfloat16()
+    before = kernels.counts()["encoder_epilogue"]
     got = ek.encoder_epilogue(x, a, enc)
+    assert kernels.counts()["encoder_epilogue"] == before + 1
     ref = ek.encoder_epilogue_plain(x, a, enc)
     torch.testing.assert_close(got, ref, atol=2e-2, rtol=0)
 

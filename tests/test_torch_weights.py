@@ -83,7 +83,14 @@ def test_from_jax_params_shapes_and_device():
     torch.testing.assert_close(enc["w_pos"][:, :C], mlp["w2"] @ enc["wq"])
     assert torch.all(enc["w_pos"][:, 2 * C:] == 0)
     torch.testing.assert_close(enc["b_qkv"][2 * C:], enc["bv"])
-    assert torch.equal(enc["wo_bf16"], enc["wo"].bfloat16())
+    # kernel B2's panels [N/C, K/32, C, 32] hold the bf16 weights
+    for key, w in (("wo_panels_bf16", "wo"),
+                   ("ffn_w1_panels_bf16", "ffn_w1"),
+                   ("ffn_w2_panels_bf16", "ffn_w2")):
+        n_panels, n_slabs = enc[key].shape[:2]
+        untiled = enc[key].permute(1, 3, 0, 2).reshape(32 * n_slabs,
+                                                       C * n_panels)
+        assert torch.equal(untiled, enc[w].bfloat16())
     assert torch.equal(enc["ln_stack"][5], enc["norm_b"])
 
 
