@@ -15,11 +15,15 @@ Phases (any failure exits non-zero):
   4. check the launch counters rose by exactly 2 / 8 / 8 / 1 per frame
      (segment_max / set_attention / encoder_epilogue / rotated_overlap);
   5. hold each kernel against its plain PyTorch version on the inputs the
-     main path gave it, and time kernel, plain version and, where one
-     exists, the PyTorch library call computing the same function: by CUDA
-     events around back-to-back calls (host dispatch included), and for the
-     kernel and the library call also device-only (``device_ms``); B2 also
-     at 1, 132 and 264 tiles of 64 rows;
+     main path gave it (B3 and B4 on all three frames, with B4's NMS kept
+     set and its count of 64-slot reruns), and time kernel, plain version
+     and, where one exists, the PyTorch library call computing the same
+     function: by CUDA events around back-to-back calls (host dispatch
+     included), and for the kernel and the library call also device-only
+     (``device_ms``); for B3 and B4 also every device kernel of one wrapper
+     call (``wrapper_device_ms``); B3 also on a seeded stream of 1..48-row
+     segments (real clouds' pillars), B2 also at 1, 132 and 264 tiles of 64
+     rows;
   6. end-to-end checks: the tiny configuration's fp32 boxes on the card
      against ``tests/goldens/tiny_seed0.json``, and box parity of the bf16
      kernel path against fp32, both on the card, on checkpoints calibrated
@@ -354,61 +358,153 @@ def first_call(recorder, kernel, frame):
     raise SmokeFailure(f"no {kernel} call recorded for frame {frame}")
 
 
-def check_segment_max(recorder, frame):
-    """Kernel B3 vs plain on both calls of one frame: bit-exact on the
-    defined rows (rows of segments no longer than the cap; start rows only
-    for starts_only)."""
+def _segment_max_checked(feats, is_start, cap, starts_only, what):
+    """B3 and its plain version on one input, bit-exact on the defined rows
+    (rows of segments no longer than the cap; start rows only for
+    starts_only).  Returns (segment ids, segment lengths, defined rows,
+    rows written, contract bytes): one read of the defined rows, one write
+    of each defined row (full) or of each defined segment's first row
+    (starts_only), and the N flag bytes."""
     import torch
     from dsvt_ai_trt_tpu_torch.ops import segment
-    calls = [c for c in recorder.calls["segment_max"] if c[0] == frame]
-    check(len(calls) == 2, f"segment_max: {len(calls)} calls for {frame}")
-    out = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-           "bound_ms": 0.0, "max_abs_err": 0.0, "calls": []}
-    ops_total = bytes_total = 0
-    for _fr, args, kw in calls:
-        feats, is_start, cap = args[:3]
-        starts_only = kw.get("starts_only", args[3] if len(args) > 3 else False)
-        got = segment.segmented_max_cuda(feats, is_start, cap, starts_only)
-        ref = segment.segmented_max_plain(feats, is_start, cap, starts_only)
-        seg = torch.cumsum(is_start.long(), 0) - 1
-        seg_len = torch.bincount(seg)[seg]
-        defined = seg_len <= cap
-        if starts_only:
-            defined &= is_start
-        check(torch.equal(got[defined], ref[defined]),
-              f"segment_max (starts_only={starts_only}) differs from plain")
-        N, C = feats.shape
-        # library yardstick: one scatter_reduce("amax") into the segment
-        # table (same reduction, table output, no broadcast back)
-        idx = seg[:, None].expand(-1, C).contiguous()
-        table = torch.empty((N, C), dtype=feats.dtype, device=feats.device)
+    got = segment.segmented_max_cuda(feats, is_start, cap, starts_only)
+    ref = segment.segmented_max_plain(feats, is_start, cap, starts_only)
+    seg = torch.cumsum(is_start.long(), 0) - 1
+    lengths = torch.bincount(seg)
+    defined = lengths[seg] <= cap
+    n_rows = int(defined.sum())
+    if starts_only:
+        defined &= is_start
+    check(torch.equal(got[defined], ref[defined]),
+          f"segment_max (starts_only={starts_only}) differs from plain on "
+          f"{what}")
+    n_out = int(defined.sum())
+    N, C = feats.shape
+    nbytes = (n_rows + n_out) * C * feats.element_size() + N
+    return seg, lengths, n_rows, n_out, nbytes
 
-        def lib_call():
-            table.fill_(float("-inf"))
-            table.scatter_reduce_(0, idx, feats, reduce="amax")
-        t_k = cuda_ms(lambda: segment.segmented_max_cuda(feats, is_start, cap,
-                                                         starts_only))
-        t_p = cuda_ms(lambda: segment.segmented_max_plain(feats, is_start, cap,
-                                                          starts_only))
-        t_l = cuda_ms(lib_call)
+
+def ragged_flags(n, cap, seed, tail=100):
+    """is_start of a stream of segments of 1..cap rows (uniform, seeded), as
+    the pillars of a real cloud hold up to cap points, then an over-cap
+    tail of `tail` rows."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1, cap + 1, n)
+    starts = np.cumsum(lengths) - lengths
+    flags = np.zeros(n, bool)
+    flags[starts[starts < n - tail]] = True
+    flags[n - tail] = True
+    return flags
+
+
+def time_segment_max_ragged(cap, n=30000):
+    """B3 device-only on a seeded 1..cap-row stream at the main path's two
+    shapes (C = 96 full, C = 192 starts_only, bf16), bit-exact against
+    plain, with each call's bound on its contract bytes."""
+    import torch
+    from dsvt_ai_trt_tpu_torch.ops import segment
+    is_start = torch.from_numpy(ragged_flags(n, cap, seed=0)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    res = []
+    for C, starts_only in ((96, False), (192, True)):
+        feats = torch.randn(n, C, device="cuda", generator=gen).bfloat16()
+        _seg, lengths, n_rows, n_out, nbytes = _segment_max_checked(
+            feats, is_start, cap, starts_only, "the ragged stream")
         t_d, how = device_ms(lambda: segment.segmented_max_cuda(
             feats, is_start, cap, starts_only), SYMBOLS["segment_max"])
-        nbytes = 2 * N * C * feats.element_size() + N
-        ops = N * C * (1 if starts_only else 2)
-        b, _by = bound_ms(nbytes, ops, F32_FLOPS)
-        out["calls"].append({"N": N, "C": C, "dtype": str(feats.dtype),
-                             "starts_only": bool(starts_only), "ms": t_k,
-                             "device_ms": t_d, "device_ms_by": how,
-                             "plain_ms": t_p, "library_ms": t_l,
-                             "bound_ms": b, "bytes": nbytes})
-        out["ms"] += t_k
-        out["device_ms"] += t_d
-        out["plain_ms"] += t_p
-        out["library_ms"] += t_l
-        bytes_total += nbytes
-        ops_total += ops
-    out["bound_ms"], out["bound_by"] = bound_ms(bytes_total, ops_total,
+        b, by = bound_ms(nbytes, n_rows * C, F32_FLOPS)
+        res.append({"N": n, "C": C, "starts_only": starts_only,
+                    "segments": int(lengths.numel()),
+                    "mean_rows": n_rows / int((lengths <= cap).sum()),
+                    "defined_rows": n_rows, "rows_written": n_out,
+                    "bytes": nbytes, "device_ms": t_d, "device_ms_by": how,
+                    "bound_ms": b, "bound_by": by, "bound_share": b / t_d})
+    return res
+
+
+def check_segment_max(recorder, frames_to_check):
+    """Kernel B3 vs plain on both calls of each frame (bit-exact on the
+    defined rows); timed on the first frame, and on a 1..cap-row stream.
+
+    Bounds: `bound_ms` counts the bytes this run's data needs under the
+    contract (`_segment_max_checked`); the kernel touches no row of an
+    over-cap segment.  `bound_ms_all_rows` reads and writes every row as if
+    all were defined (read N*C, write N*C or starts*C, N flags), the
+    yardstick of earlier kernels that computed every row."""
+    import torch
+    from dsvt_ai_trt_tpu_torch.ops import segment
+    out = {"ms": 0.0, "device_ms": 0.0, "wrapper_device_ms": 0.0,
+           "plain_ms": 0.0, "library_ms": 0.0, "library_device_ms": 0.0,
+           "bound_ms": 0.0, "bound_ms_all_rows": 0.0, "max_abs_err": 0.0,
+           "calls": []}
+    need = {"bytes": 0, "ops": 0}
+    every = {"bytes": 0, "ops": 0}
+    for frame in frames_to_check:
+        calls = [c for c in recorder.calls["segment_max"] if c[0] == frame]
+        check(len(calls) == 2, f"segment_max: {len(calls)} calls for {frame}")
+        for _fr, args, kw in calls:
+            feats, is_start, cap = args[:3]
+            starts_only = kw.get("starts_only",
+                                 args[3] if len(args) > 3 else False)
+            seg, lengths, n_rows, n_out, nbytes = _segment_max_checked(
+                feats, is_start, cap, starts_only, frame)
+            if frame != frames_to_check[0]:
+                continue
+            N, C = feats.shape
+            esz = feats.element_size()
+            n_starts = int(is_start.sum())
+            nbytes_all = (N + (n_starts if starts_only else N)) * C * esz + N
+            need["bytes"] += nbytes
+            need["ops"] += n_rows * C
+            every["bytes"] += nbytes_all
+            every["ops"] += N * C
+            # library yardsticks: one scatter_reduce("amax") into the
+            # segment table (same reduction, table output, no broadcast
+            # back), and torch.segment_reduce("max") over the same
+            # segments' lengths (the starts_only form, compacted)
+            idx = seg[:, None].expand(-1, C).contiguous()
+            table = torch.empty((N, C), dtype=feats.dtype, device=feats.device)
+
+            def lib_call():
+                table.fill_(float("-inf"))
+                table.scatter_reduce_(0, idx, feats, reduce="amax")
+
+            def kernel_call():
+                return segment.segmented_max_cuda(feats, is_start, cap,
+                                                  starts_only)
+            t_sr, how_sr = device_ms(lambda: torch.segment_reduce(
+                feats, "max", lengths=lengths, unsafe=True))
+            t_k = cuda_ms(kernel_call)
+            t_p = cuda_ms(lambda: segment.segmented_max_plain(
+                feats, is_start, cap, starts_only))
+            t_l = cuda_ms(lib_call)
+            t_d, how = device_ms(kernel_call, SYMBOLS["segment_max"])
+            t_w, how_w = device_ms(kernel_call)
+            t_ld, how_l = device_ms(lib_call)
+            b, _by = bound_ms(nbytes, n_rows * C, F32_FLOPS)
+            b_all, _ = bound_ms(nbytes_all, N * C, F32_FLOPS)
+            out["calls"].append({
+                "N": N, "C": C, "dtype": str(feats.dtype),
+                "starts_only": bool(starts_only), "defined_rows": n_rows,
+                "rows_written": n_out, "starts": n_starts, "ms": t_k,
+                "device_ms": t_d, "device_ms_by": how,
+                "wrapper_device_ms": t_w, "wrapper_device_ms_by": how_w,
+                "plain_ms": t_p, "library_ms": t_l, "library_device_ms": t_ld,
+                "library_device_ms_by": how_l,
+                "segment_reduce_device_ms": t_sr,
+                "segment_reduce_device_ms_by": how_sr,
+                "bound_ms": b, "bound_ms_all_rows": b_all, "bytes": nbytes,
+                "bytes_all_rows": nbytes_all})
+            for key, val in (("ms", t_k), ("device_ms", t_d),
+                             ("wrapper_device_ms", t_w), ("plain_ms", t_p),
+                             ("library_ms", t_l), ("library_device_ms", t_ld)):
+                out[key] += val
+    out["bound_ms"], out["bound_by"] = bound_ms(need["bytes"], need["ops"],
                                                 F32_FLOPS)
+    out["bound_ms_all_rows"], _ = bound_ms(every["bytes"], every["ops"],
+                                           F32_FLOPS)
+    out["frames_checked"] = list(frames_to_check)
+    out["ragged_stream"] = time_segment_max_ragged(cap)
     return out
 
 
@@ -505,40 +601,72 @@ def check_encoder_epilogue(recorder, frame):
             "max_abs_err": float((got - ref).abs().max())}
 
 
-def check_rotated_overlap(recorder, frame):
+def check_rotated_overlap(recorder, frames_to_check):
     """Kernel B4 vs the plain clip on the strict upper triangle (atol and
-    rtol 1e-4), and an identical NMS kept set with either overlap."""
+    rtol 1e-4; expected equal, and max |err| is reported), an identical NMS
+    kept set with either overlap, and the count of pairs that took the
+    kernel's 64-slot rerun, on each frame; timed on the first."""
     import torch
+    from dsvt_ai_trt_tpu_torch import kernels
     from dsvt_ai_trt_tpu_torch.ops import nms as nms_ops
     from dsvt_ai_trt_tpu_torch.ops import nms_kernel as nk
-    args, _kw = first_call(recorder, "rotated_overlap", frame)
-    boxes = args[0]
-    got = nk.pairwise_overlap_cuda(boxes)
-    ref = nk.pairwise_overlap_clip(boxes)
-    n = boxes.shape[0]
-    iu = torch.triu_indices(n, n, 1, device=boxes.device)
-    torch.testing.assert_close(got[iu[0], iu[1]], ref[iu[0], iu[1]],
-                               atol=1e-4, rtol=1e-4)
-    check(torch.all(torch.tril(got) == 0), "rotated_overlap: a >= b not zero")
-    count = int((boxes[:, 8] > 0).sum())
-    kb, kc = nms_ops.nms(boxes, count, 0.01, use_kernels=True)
-    pb, pc = nms_ops.nms(boxes, count, 0.01, use_kernels=False)
-    check(int(kc) == int(pc) and torch.equal(kb, pb),
-          f"nms kept set differs: kernel {int(kc)} vs plain {int(pc)}")
-    t_k = cuda_ms(lambda: nk.pairwise_overlap_cuda(boxes))
-    t_p = cuda_ms(lambda: nk.pairwise_overlap_clip(boxes), reps=3, warmup=1)
-    t_d, how = device_ms(lambda: nk.pairwise_overlap_cuda(boxes),
-                         SYMBOLS["rotated_overlap"])
-    pairs = n * (n - 1) // 2
-    # ~300 f32 operations per upper pair: 4 clip passes over <= 8 vertices
-    # (two cross products, a compare, an interpolation each) + the shoelace
-    nbytes = n * 9 * 4 + n * n * 4
-    b, by = bound_ms(nbytes, pairs * 300, F32_FLOPS)
-    return {"ms": t_k, "device_ms": t_d, "device_ms_by": how,
-            "plain_ms": t_p, "library_ms": None, "bound_ms": b,
-            "bound_by": by, "N": n, "boxes_in": count, "nms_kept": int(kc),
-            "max_abs_err": float((got[iu[0], iu[1]]
-                                  - ref[iu[0], iu[1]]).abs().max())}
+    res = {"max_abs_err": 0.0, "per_frame": {}}
+    for frame in frames_to_check:
+        args, _kw = first_call(recorder, "rotated_overlap", frame)
+        boxes = args[0]
+        got = nk.pairwise_overlap_cuda(boxes)
+        ref = nk.pairwise_overlap_clip(boxes)
+        n = boxes.shape[0]
+        iu = torch.triu_indices(n, n, 1, device=boxes.device)
+        torch.testing.assert_close(got[iu[0], iu[1]], ref[iu[0], iu[1]],
+                                   atol=1e-4, rtol=1e-4)
+        check(torch.all(torch.tril(got) == 0),
+              f"rotated_overlap: a >= b not zero on {frame}")
+        count = int((boxes[:, 8] > 0).sum())
+        kb, kc = nms_ops.nms(boxes, count, 0.01, use_kernels=True)
+        pb, pc = nms_ops.nms(boxes, count, 0.01, use_kernels=False)
+        check(int(kc) == int(pc) and torch.equal(kb, pb),
+              f"nms kept set differs on {frame}: kernel {int(kc)} vs plain "
+              f"{int(pc)}")
+        slow = torch.zeros(1, dtype=torch.int32, device=boxes.device)
+        scratch = torch.empty_like(got)
+        kernels.launch("rotated_overlap", boxes.data_ptr(), boxes.stride(0),
+                       scratch.data_ptr(), n, slow.data_ptr())
+        check(torch.equal(scratch, got), "rotated_overlap: counted launch "
+              "differs from the wrapper's")
+        err = float((got[iu[0], iu[1]] - ref[iu[0], iu[1]]).abs().max())
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        res["per_frame"][frame] = {
+            "N": n, "boxes_in": count, "nms_kept": int(kc),
+            "overlapping_pairs": int((got[iu[0], iu[1]] > 0).sum()),
+            "slow_pairs": int(slow), "max_abs_err": err}
+        if frame != frames_to_check[0]:
+            continue
+        t_k = cuda_ms(lambda: nk.pairwise_overlap_cuda(boxes))
+        t_p = cuda_ms(lambda: nk.pairwise_overlap_clip(boxes), reps=3,
+                      warmup=1)
+        t_d, how = device_ms(lambda: nk.pairwise_overlap_cuda(boxes),
+                             SYMBOLS["rotated_overlap"])
+        t_w, how_w = device_ms(lambda: nk.pairwise_overlap_cuda(boxes))
+        one = torch.empty(1, device=boxes.device)
+        t_floor, _ = device_ms(one.zero_)   # one launch's own device time
+        # operations this frame's boxes need: a separating-axis test for
+        # each upper pair (67 f32 operations: the axes' cosines, the four
+        # projections against the summed half extents, the margin), and a
+        # clip only for a pair whose area is not 0 (~300: 4 passes over
+        # <= 8 vertices, two cross products, a compare and an interpolation
+        # each, then the shoelace)
+        pairs = n * (n - 1) // 2
+        overlapping = res["per_frame"][frame]["overlapping_pairs"]
+        ops = pairs * 67 + overlapping * 300
+        nbytes = n * 9 * 4 + n * n * 4
+        b, by = bound_ms(nbytes, ops, F32_FLOPS)
+        res.update({"ms": t_k, "device_ms": t_d, "device_ms_by": how,
+                    "wrapper_device_ms": t_w, "wrapper_device_ms_by": how_w,
+                    "one_launch_floor_device_ms": t_floor,
+                    "plain_ms": t_p, "library_ms": None, "bound_ms": b,
+                    "bound_by": by, "bytes": nbytes, "ops": ops, "N": n})
+    return res
 
 
 def check_tiny_golden():
@@ -666,11 +794,11 @@ def _main(torch) -> int:
     log({"phase": "profile", "frame": "dense_seed0", **prof})
 
     results = {
-        "segment_max": check_segment_max(recorder, "dense_seed0"),
+        "segment_max": check_segment_max(recorder, list(frames)),
         "set_attention": check_set_attention(recorder,
                                              ["dense_seed0", "sparse_seed1"]),
         "encoder_epilogue": check_encoder_epilogue(recorder, "dense_seed0"),
-        "rotated_overlap": check_rotated_overlap(recorder, "dense_seed0"),
+        "rotated_overlap": check_rotated_overlap(recorder, list(frames)),
     }
     for name, res in results.items():
         # the same kernels' device ms in the profiled frame, per launch

@@ -13,6 +13,11 @@ CPU has no ``nvcc``.
 Launch counts: each kernel wrapper calls ``count(name)`` exactly where it
 launches its kernel, and nowhere else, so a run can show that the main path
 went through the kernels (``reset_counts`` / ``counts``).
+
+A test may build and load a variant of a kernel with extra ``-D`` defines
+(``lib(name, defines={"B4_SLOTS": 4})``) to drive a code path that the main
+path's inputs do not reach; it goes to its own library.  The wrappers
+never pass ``defines``.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import shutil
 import subprocess
 import tempfile
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -43,13 +48,13 @@ SPECS = {
                          [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _F, _P]),
     "rotated_overlap": ("rotated_overlap.cu", "dsvt_rotated_overlap",
-                        [_P, _P, _I, _P]),
+                        [_P, _I, _P, _I, _P, _P]),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[tuple, ctypes.CDLL] = {}
 _counts: Dict[str, int] = {name: 0 for name in SPECS}
 
 
@@ -91,14 +96,21 @@ def _build_dir() -> str:
     return os.path.join(root, digest.hexdigest()[:16])
 
 
-def _so_path(name: str) -> str:
-    return os.path.join(_build_dir(), f"lib{name}.so")
+def _define_flags(defines: Optional[Dict[str, int]]) -> List[str]:
+    return [f"-D{k}={v}" for k, v in sorted((defines or {}).items())]
 
 
-def build_all(names: List[str] = None) -> Dict[str, float]:
+def _so_path(name: str, defines: Optional[Dict[str, int]] = None) -> str:
+    tag = "".join(f"-{k}{v}" for k, v in sorted((defines or {}).items()))
+    return os.path.join(_build_dir(), f"lib{name}{tag}.so")
+
+
+def build_all(names: List[str] = None,
+              defines: Optional[Dict[str, int]] = None) -> Dict[str, float]:
     """Compile the named kernels (default all) in parallel, one ``nvcc``
-    each; returns the wall seconds per kernel built (0.0 when cached).
-    Raises with the compiler's output when a build fails."""
+    each, with ``defines`` added as ``-D`` flags; returns the wall seconds
+    per kernel built (0.0 when cached).  Raises with the compiler's output
+    when a build fails."""
     names = list(SPECS) if names is None else names
     out_dir = _build_dir()
     os.makedirs(out_dir, exist_ok=True)
@@ -107,13 +119,13 @@ def build_all(names: List[str] = None) -> Dict[str, float]:
     t0 = time.perf_counter()
     seconds = {}
     for name in names:
-        so = _so_path(name)
+        so = _so_path(name, defines)
         if os.path.exists(so):
             seconds[name] = 0.0
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+        cmd = [nvcc, *NVCC_FLAGS, *_define_flags(defines), "-o", tmp,
                os.path.join(_CSRC, SPECS[name][0])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT), tmp)
@@ -125,24 +137,26 @@ def build_all(names: List[str] = None) -> Dict[str, float]:
             os.unlink(tmp)
             failures.append(f"{name}:\n{log.decode(errors='replace')}")
         else:
-            os.replace(tmp, _so_path(name))   # atomic: no half-written .so
+            os.replace(tmp, _so_path(name, defines))   # atomic
     if failures:
         raise RuntimeError("nvcc failed for " + "\n".join(failures))
     return seconds
 
 
-def lib(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built on first use."""
-    if name not in _libs:
-        so = _so_path(name)
+def lib(name: str, defines: Optional[Dict[str, int]] = None) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (built with ``defines``),
+    built on first use."""
+    key = (name, tuple(sorted((defines or {}).items())))
+    if key not in _libs:
+        so = _so_path(name, defines)
         if not os.path.exists(so):
-            build_all([name])
+            build_all([name], defines)
         handle = ctypes.CDLL(so)
         fn = getattr(handle, SPECS[name][1])
         fn.argtypes = SPECS[name][2]
         fn.restype = ctypes.c_int
-        _libs[name] = handle
-    return _libs[name]
+        _libs[key] = handle
+    return _libs[key]
 
 
 def launch(name: str, *args) -> None:

@@ -9,8 +9,14 @@ defined; greedy NMS reads nothing else.
 
 The plain version is the port of ``ops/nms.py:pairwise_overlap_clip`` (the
 64-slot validity-masked clip), with corners from ``box_corners``.  The CUDA
-kernel is ``csrc/rotated_overlap.cu``.  A tensor on the card launches it; a
-tensor on the CPU takes the plain version.
+kernel is ``csrc/rotated_overlap.cu``: it takes the boxes themselves and
+builds each tile's corners in shared memory with ``box_corners``' rounding,
+so the wrapper only checks, allocates and launches.  It writes 0 at once
+for a pair that an axis separates by more than the clip's rounding could
+bridge, clips the others with 16 lanes a pair, and reruns a pair on 64
+slots where a pass would emit more than 16 vertices; it agrees with the
+plain version bit for bit.  A tensor on the card launches it; a tensor on
+the CPU takes the plain version.
 """
 
 from __future__ import annotations
@@ -97,18 +103,22 @@ def pairwise_overlap_clip(boxes: torch.Tensor) -> torch.Tensor:
 
 def pairwise_overlap_cuda(boxes: torch.Tensor) -> torch.Tensor:
     """Launch kernel B4 (``csrc/rotated_overlap.cu``) on the current
-    stream: upper triangle exact, a >= b written as 0."""
+    stream: upper triangle exact, a >= b written as 0.  The kernel reads
+    the boxes' rows in place (any row stride, unit column stride) and
+    builds the corners itself."""
     if boxes.dim() != 2 or boxes.shape[1] < 7 or boxes.dtype != torch.float32:
         raise ValueError(f"pairwise_overlap: f32 boxes [N, >=7], got "
                          f"{tuple(boxes.shape)} {boxes.dtype}")
-    c = box_corners(boxes)
-    corners = torch.cat([c[..., 0], c[..., 1]], dim=1).contiguous()  # [N, 8]
-    kernels.require_cuda("pairwise_overlap", corners)
+    if not boxes.is_cuda or boxes.stride(1) != 1:
+        raise ValueError(f"pairwise_overlap: boxes on a CUDA device with "
+                         f"unit column stride, got {boxes.device} strides "
+                         f"{boxes.stride()}")
     n = boxes.shape[0]
     out = torch.empty((n, n), dtype=torch.float32, device=boxes.device)
     if n == 0:
         return out
-    kernels.launch("rotated_overlap", corners.data_ptr(), out.data_ptr(), n)
+    kernels.launch("rotated_overlap", boxes.data_ptr(), boxes.stride(0),
+                   out.data_ptr(), n, None)
     kernels.count("rotated_overlap")
     return out
 

@@ -3,16 +3,20 @@ version.
 
 Replaces the JAX package's Pallas kernel ``ops/segment_pallas.py:
 segmented_max`` (body ``_seg_kernel``).  Contract: ``feats [N, C]`` is a
-stream whose segments (runs starting at each ``is_start`` row) are
-contiguous and at most ``cap`` rows long; each row gets its whole segment's
+stream whose segments (runs starting at each ``is_start`` row; row 0 always
+starts one) are contiguous and at most ``cap`` rows long, ``1 <= cap <=
+64`` (the Pallas kernel's own limit); each row gets its whole segment's
 channelwise max.  With ``starts_only=True`` only segment-start rows are
 defined.  Rows of an over-cap segment (the voxelizer's invalid-sentinel
-tail) are undefined and masked by every caller.  The output has the input's
-type (bf16 or f32); max is exact, so kernel and plain version agree bit for
-bit on the defined rows.
+tail) are undefined and masked by every caller; the kernel neither reads
+nor writes them.  The output has the input's type (bf16 or f32); max is
+exact, so kernel and plain version agree bit for bit on the defined rows.
 
-The CUDA kernel is ``csrc/segment_max.cu``.  A tensor on the card launches
-it; a tensor on the CPU takes ``segmented_max_plain``.
+The CUDA kernel is ``csrc/segment_max.cu``: a block owns the segments that
+start in its 32-row tile and reads their rows once, in 16-byte vectors.
+It reads a bool (or uint8) ``is_start`` tensor's bytes as they are, with no
+copy.  A tensor on the card launches it; a tensor on the CPU takes
+``segmented_max_plain``.
 """
 
 from __future__ import annotations
@@ -20,6 +24,10 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+
+MAX_CAP = 64
+TILE = 32      # csrc/segment_max.cu's TILE (rows whose segments one block
+#                owns), for the tests' tile-edge streams; change both
 
 
 def segmented_max_plain(feats: torch.Tensor, is_start: torch.Tensor,
@@ -47,15 +55,18 @@ def segmented_max_cuda(feats: torch.Tensor, is_start: torch.Tensor,
                          f"{tuple(feats.shape)} and {tuple(is_start.shape)}")
     if feats.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"segmented_max: f32 or bf16 input, got {feats.dtype}")
-    if not 1 <= cap <= 1024:
-        raise ValueError(f"segmented_max: cap must be in [1, 1024], got {cap}")
-    flags = is_start.to(torch.uint8).contiguous()
-    kernels.require_cuda("segmented_max", feats, flags)
+    if is_start.dtype not in (torch.bool, torch.uint8):
+        raise ValueError(f"segmented_max: bool or uint8 is_start, got "
+                         f"{is_start.dtype}")
+    if not 1 <= cap <= MAX_CAP:
+        raise ValueError(f"segmented_max: cap must be in [1, {MAX_CAP}], "
+                         f"got {cap}")
+    kernels.require_cuda("segmented_max", feats, is_start)
     N, C = feats.shape
     out = torch.empty_like(feats)
     if N == 0 or C == 0:
         return out
-    kernels.launch("segment_max", feats.data_ptr(), flags.data_ptr(),
+    kernels.launch("segment_max", feats.data_ptr(), is_start.data_ptr(),
                    out.data_ptr(), N, C,
                    int(feats.dtype == torch.bfloat16), int(starts_only), cap)
     kernels.count("segment_max")

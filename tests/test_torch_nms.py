@@ -11,12 +11,15 @@ JAX NMS's boxes and count.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from dsvt_ai_trt_tpu.ops.nms import box_corners as jax_box_corners
 from dsvt_ai_trt_tpu.ops.nms import nms as jax_nms
 from dsvt_ai_trt_tpu.ops.nms import pairwise_overlap_clip as jax_clip
 from dsvt_ai_trt_tpu.ops.nms_pallas import pairwise_overlap_pallas
+from dsvt_ai_trt_tpu_torch import kernels
+from dsvt_ai_trt_tpu_torch.ops import nms_kernel
 from dsvt_ai_trt_tpu_torch.ops.nms import box_corners, nms, pairwise_overlap_clip
 
 
@@ -80,3 +83,17 @@ def test_nms_kept_set_matches_jax():
                                    use_kernels=False)
     assert int(plain_count) == int(got_count)
     assert torch.equal(plain_boxes, got_boxes)
+
+
+@pytest.mark.parametrize("boxes,match", [
+    (torch.zeros(5, 6), r"\[N, >=7\]"),                 # too narrow
+    (torch.zeros(5, 9, dtype=torch.float64), "f32"),
+    (torch.zeros(5, 9), "CUDA device"),                    # on the CPU
+])
+def test_pairwise_overlap_cuda_checks_arguments_first(boxes, match):
+    """Kernel B4's wrapper refuses what its kernel does not take with
+    ValueError, before it builds or launches anything."""
+    before = kernels.counts()
+    with pytest.raises(ValueError, match=match):
+        nms_kernel.pairwise_overlap_cuda(boxes)
+    assert kernels.counts() == before

@@ -21,6 +21,8 @@ from dsvt_ai_trt_tpu.ops.segment_pallas import segmented_max as jax_segmax
 from dsvt_ai_trt_tpu.ops.voxelize import voxelize as jax_voxelize
 from dsvt_ai_trt_tpu_torch import weights
 from dsvt_ai_trt_tpu_torch.model.vfe import vfe_forward
+from dsvt_ai_trt_tpu_torch import kernels
+from dsvt_ai_trt_tpu_torch.ops import segment
 from dsvt_ai_trt_tpu_torch.ops.segment import segmented_max_plain
 from dsvt_ai_trt_tpu_torch.ops.voxelize import voxelize
 
@@ -67,6 +69,67 @@ def test_segmented_max_plain_matches_pallas(dtype, starts_only):
                                       err_msg=f"segment {s}:{e}")
         checked += 1
     assert checked > 50
+
+
+def _stream_cap_at_tile_edges(rng, N, cap, n_valid):
+    """Segments of 1..cap rows, with segments of exactly cap rows starting
+    one row before, on and one row after multiples of the CUDA kernel's
+    tile (segment.TILE), then the over-cap sentinel tail."""
+    T = segment.TILE
+    forced = [k * T + (k % 3) - 1 for k in range(1, n_valid // T - 1, 2)]
+    flags = np.zeros(N, bool)
+    p = 0
+    while p < n_valid:
+        flags[p] = True
+        if forced and p == forced[0]:
+            forced.pop(0)
+            p += cap
+        else:
+            limit = forced[0] if forced else n_valid
+            p += min(int(rng.integers(1, cap + 1)), limit - p)
+    flags[n_valid] = True
+    return flags
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("starts_only", [False, True])
+def test_segmented_max_plain_matches_pallas_at_tile_edges(dtype, starts_only):
+    rng = np.random.default_rng(12)
+    N, C = 1920, 16
+    is_start = _stream_cap_at_tile_edges(rng, N, CAP, 1700)
+    starts = np.flatnonzero(is_start)
+    lengths = np.diff(np.append(starts, N))
+    edge = starts[(lengths == CAP) & (np.abs(
+        (starts + 1) % segment.TILE - 1) <= 1)]
+    assert len(edge) >= 9          # cap-row segments at -1, 0, +1 of edges
+    feats = rng.normal(0, 1, (N, C)).astype(np.float32)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    ref = np.asarray(jax_segmax(jnp.asarray(feats, jdt), jnp.asarray(is_start),
+                                CAP, interpret=True,
+                                starts_only=starts_only).astype(jnp.float32))
+    got = segmented_max_plain(torch.from_numpy(feats).to(tdt),
+                              torch.from_numpy(is_start), CAP,
+                              starts_only).float().numpy()
+    rows = starts[lengths <= CAP] if starts_only else np.flatnonzero(
+        np.repeat(lengths <= CAP, lengths))
+    assert len(rows) > (1000 if not starts_only else 50)
+    np.testing.assert_array_equal(got[rows], ref[rows])
+
+
+@pytest.mark.parametrize("bad", ["cap", "flags"])
+def test_segmented_max_cuda_checks_arguments_first(bad):
+    """The kernel wrapper refuses a cap above the Pallas kernel's 64 and
+    non-byte flags with ValueError before it looks for a card."""
+    feats = torch.zeros(8, 4)
+    is_start = torch.ones(8, dtype=torch.bool)
+    before = kernels.counts()
+    with pytest.raises(ValueError, match=bad if bad == "cap" else "is_start"):
+        if bad == "cap":
+            segment.segmented_max_cuda(feats, is_start, segment.MAX_CAP + 1)
+        else:
+            segment.segmented_max_cuda(feats, is_start.float(), 8)
+    assert kernels.counts() == before
 
 
 def _vfe_inputs(seed, n_points):
