@@ -8,10 +8,11 @@ Phases (any failure exits non-zero):
      ``nvcc`` each, all at once) and print the build seconds;
   2. print the card's name and power limit;
   3. run ``Engine`` at ``DEFAULT_CONFIG`` width with ``precision="bf16"`` and
-     seeded random weights on three synthetic frames (20 000 points that
-     fill the 800 sets, a sparse 4 000-point frame with fewer live sets, a
-     second 20 000-point seed); print boxes, occupancy and ms per frame
-     (CUDA events, after warm-up);
+     seeded random weights on three synthetic frames
+     (``bench.synthetic_frames``: 20 000 points that fill the 800 sets, a
+     sparse 4 000-point frame with fewer live sets, a second 20 000-point
+     seed); print boxes, occupancy and ms per frame (CUDA events, after
+     warm-up);
   4. check the launch counters rose by exactly 2 / 8 / 8 / 1 per frame
      (segment_max / set_attention / encoder_epilogue / rotated_overlap);
   5. hold each kernel against its plain PyTorch version on the inputs the
@@ -28,8 +29,26 @@ Phases (any failure exits non-zero):
      against ``tests/goldens/tiny_seed0.json``, and box parity of the bf16
      kernel path against fp32, both on the card, on checkpoints calibrated
      on each of the three frames (``check_parity`` says what is gated);
-  7. print the ``kernels`` JSON line, the card line, and last the result
-     line ``{"ok": true, "device": {...}}``.
+  7. runtime: the three frames written as .bin files, ``cli build
+     --engine`` then ``cli infer --engine --pipeline-depth 2``: rows equal
+     the direct ``Engine`` call's at 1e-4 and the launch counts rise 2/8/8/1
+     per frame (the engine's warm-up frame included); ``--host-nms`` keeps
+     the same count and rows as NMS on the card, and ``--scan-batch 2``
+     equals the stream;
+  8. waymo: ``WAYMO_CONFIG`` at full width on a seeded frame densified to
+     180 000 points (``bench.waymo_base_frame``): launch counts 2/8/8/1,
+     finite boxes, occupancy under every cap; B1 and B3 held against their
+     plain versions on the inputs that frame gave them, and timed with
+     bounds;
+  9. bench: ``python -m dsvt_ai_trt_tpu_torch.bench`` in this process on
+     the three frames (Waymo pass on the Waymo base frame), few
+     iterations; its JSON line is printed;
+ 10. print the card line, the ``kernels`` JSON line (second to last), and
+     last the result line ``{"ok": true, "device": {...}}``.
+
+The profile of phase 5 is ``runtime/trace.capture``'s: per stage host ms,
+span and busy ms on the device timeline, per kernel device ms, and the
+device's idle share of the frame's span.
 
 Needs one CUDA card; exits non-zero without one, and without the package.
 """
@@ -39,8 +58,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -84,17 +103,6 @@ def log(obj):
 # --------------------------------------------------------------------------
 # frames and configurations
 # --------------------------------------------------------------------------
-
-
-def entry_frame(cfg, n, seed, half_extent=60.0):
-    """A synthetic cloud as the JAX package's __graft_entry__.entry builds
-    it: x, y uniform in +-half_extent, z in [-3, 2], intensity in [0, 1]."""
-    rng = np.random.default_rng(seed)
-    pts = np.zeros((cfg.max_points, 4), np.float32)
-    pts[:n, :2] = rng.uniform(-half_extent, half_extent, (n, 2))
-    pts[:n, 2] = rng.uniform(-3, 2, n)
-    pts[:n, 3] = rng.uniform(0, 1, n)
-    return pts, np.int32(n)
 
 
 def tiny_config():
@@ -220,14 +228,6 @@ def bound_ms(nbytes, ops, peak):
 # --------------------------------------------------------------------------
 
 
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
-    return out.stdout.strip().splitlines()[0]
-
-
 class Recorder:
     """Wraps the kernel wrappers the main path calls, keeping the inputs of
     each call so the kernels can be held against their plain versions on
@@ -294,61 +294,40 @@ def run_main_path(engine, frames):
     return records, counts, recorder
 
 
-def profile_frame(engine, pts, n):
-    """One warm frame under torch.profiler: host wall ms, device busy ms
-    (kernels, copies and memsets on the device timeline), the device's idle
-    share, and per forward stage (model.detector.STAGES labels) its host
-    ms, its span on the device timeline and the device ms of the kernels
-    that started inside that span; plus the top device kernels."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from dsvt_ai_trt_tpu_torch.model.detector import STAGES
-    engine(pts, n)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine(pts, n)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    events = prof.events()
-    on_dev = [e for e in events if e.device_type == DeviceType.CUDA]
-    spans = [e for e in on_dev if e.name in STAGES]
-    kern = [e for e in on_dev if e.name not in STAGES]
-    stages = {name: {"host_ms": 0.0, "device_span_ms": 0.0,
-                     "device_busy_ms": 0.0, "kernels": {}} for name in STAGES}
-    for e in events:
-        if e.device_type == DeviceType.CPU and e.name in STAGES:
-            stages[e.name]["host_ms"] += e.time_range.elapsed_us() / 1e3
-    for sp in spans:
-        stages[sp.name]["device_span_ms"] += sp.time_range.elapsed_us() / 1e3
-    by_name = {}
-    for k in kern:
-        ms = k.time_range.elapsed_us() / 1e3
-        by_name.setdefault(k.name, [0.0, 0])
-        by_name[k.name][0] += ms
-        by_name[k.name][1] += 1
-        for sp in spans:
-            if sp.time_range.start <= k.time_range.start < sp.time_range.end:
-                st = stages[sp.name]
-                st["device_busy_ms"] += ms
-                st["kernels"][k.name[:60]] = st["kernels"].get(k.name[:60],
-                                                                0.0) + ms
-                break
-    for st in stages.values():   # keep each stage's four costliest kernels
-        st["kernels"] = dict(sorted(st["kernels"].items(),
-                                    key=lambda kv: -kv[1])[:4])
-    busy = sum(v[0] for v in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-    ours = {name: {"ms": sum(v[0] for k, v in by_name.items() if sym in k),
-                   "calls": sum(v[1] for k, v in by_name.items() if sym in k)}
+def profile_frame(engine, pts, n, iters=2):
+    """Warm frames under torch.profiler, by ``runtime/trace.capture``, per
+    frame: the host ms of the call (``wall_ms``), the frame's span on the
+    device timeline, device busy ms (kernels, copies and memsets), the
+    device's idle share of the span, the host ms spent waiting for the card
+    and in launch calls, and per forward stage (model.detector.STAGES
+    labels) its host ms, the span and busy ms on the device of the work it
+    launched and its four costliest kernels, its GFLOP and MFU; plus each
+    hand-written kernel's device ms and the top device kernels."""
+    from dsvt_ai_trt_tpu_torch.runtime.profiler import device_peak_flops
+    from dsvt_ai_trt_tpu_torch.runtime.trace import capture
+    prof = capture(engine, (pts, n), iters=iters)
+    table = prof.stage_table(device_peak_flops(engine.cfg.precision))
+    stages = {name: {"host_ms": v["host_ms"], "device_span_ms": v["span_ms"],
+                     "device_busy_ms": v["busy_ms"],
+                     "gflop": table.get(name, {}).get("gflop", 0.0),
+                     "mfu": table.get(name, {}).get("mfu"),
+                     "kernels": [{"name": r["name"][:120], "ms": r["ms"]}
+                                 for r in prof.stage_ops(name, 4)]}
+              for name, v in prof.stage_spans().items()}
+    rows = prof.top_ops(len(prof.ops))
+    ours = {name: {"ms": sum(r["ms"] for r in rows if sym in r["name"]),
+                   "calls": sum(r["calls"] for r in rows if sym in r["name"])}
             for name, sym in SYMBOLS.items()}
-    return {"wall_ms": wall, "device_busy_ms": busy,
-            "device_idle_share": 1.0 - busy / wall, "stages": stages,
+    return {"iters": iters, "wall_ms": prof.host_ms_per_iter,
+            "device_span_ms": prof.window_ms_per_iter,
+            "device_busy_ms": prof.device_ms_per_iter,
+            "device_idle_share": prof.idle_share,
+            "host_wait_ms": prof.host_wait_ms_per_iter,
+            "host_launch_ms": prof.host_launch_ms_per_iter,
+            "gflop": prof.flops.total / 1e9, "stages": stages,
             "kernels": ours,
-            "top_device": [{"name": k[:90], "ms": v[0], "calls": v[1]}
-                           for k, v in top]}
+            "top_device": [{"name": r["name"][:90], "ms": r["ms"],
+                            "calls": r["calls"]} for r in rows[:15]]}
 
 
 def first_call(recorder, kernel, frame):
@@ -412,7 +391,7 @@ def time_segment_max_ragged(cap, n=30000):
             feats, is_start, cap, starts_only, "the ragged stream")
         t_d, how = device_ms(lambda: segment.segmented_max_cuda(
             feats, is_start, cap, starts_only), SYMBOLS["segment_max"])
-        b, by = bound_ms(nbytes, n_rows * C, F32_FLOPS)
+        b, by = bound_ms(nbytes, segment.flops(n_rows, C), F32_FLOPS)
         res.append({"N": n, "C": C, "starts_only": starts_only,
                     "segments": int(lengths.numel()),
                     "mean_rows": n_rows / int((lengths <= cap).sum()),
@@ -422,7 +401,7 @@ def time_segment_max_ragged(cap, n=30000):
     return res
 
 
-def check_segment_max(recorder, frames_to_check):
+def check_segment_max(recorder, frames_to_check, ragged=True):
     """Kernel B3 vs plain on both calls of each frame (bit-exact on the
     defined rows); timed on the first frame, and on a 1..cap-row stream.
 
@@ -455,9 +434,9 @@ def check_segment_max(recorder, frames_to_check):
             n_starts = int(is_start.sum())
             nbytes_all = (N + (n_starts if starts_only else N)) * C * esz + N
             need["bytes"] += nbytes
-            need["ops"] += n_rows * C
+            need["ops"] += segment.flops(n_rows, C)
             every["bytes"] += nbytes_all
-            every["ops"] += N * C
+            every["ops"] += segment.flops(N, C)
             # library yardsticks: one scatter_reduce("amax") into the
             # segment table (same reduction, table output, no broadcast
             # back), and torch.segment_reduce("max") over the same
@@ -481,8 +460,8 @@ def check_segment_max(recorder, frames_to_check):
             t_d, how = device_ms(kernel_call, SYMBOLS["segment_max"])
             t_w, how_w = device_ms(kernel_call)
             t_ld, how_l = device_ms(lib_call)
-            b, _by = bound_ms(nbytes, n_rows * C, F32_FLOPS)
-            b_all, _ = bound_ms(nbytes_all, N * C, F32_FLOPS)
+            b, _by = bound_ms(nbytes, segment.flops(n_rows, C), F32_FLOPS)
+            b_all, _ = bound_ms(nbytes_all, segment.flops(N, C), F32_FLOPS)
             out["calls"].append({
                 "N": N, "C": C, "dtype": str(feats.dtype),
                 "starts_only": bool(starts_only), "defined_rows": n_rows,
@@ -504,7 +483,8 @@ def check_segment_max(recorder, frames_to_check):
     out["bound_ms_all_rows"], _ = bound_ms(every["bytes"], every["ops"],
                                            F32_FLOPS)
     out["frames_checked"] = list(frames_to_check)
-    out["ragged_stream"] = time_segment_max_ragged(cap)
+    if ragged:
+        out["ragged_stream"] = time_segment_max_ragged(cap)
     return out
 
 
@@ -550,7 +530,7 @@ def check_set_attention(recorder, frames_to_check):
         t_ld, how_l = device_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=bmask))
         nbytes = (n_live * K * 3 * C * 2 + S * K * 4 + S * K * C * 2)
-        ops = n_live * H * 4 * K * K * D
+        ops = ak.flops(n_live, K, C)
         b, by = bound_ms(nbytes, ops, BF16_FLOPS)
         res = {"ms": t_k, "device_ms": t_d, "device_ms_by": how,
                "plain_ms": t_p, "library_ms": t_l, "library_device_ms": t_ld,
@@ -580,7 +560,7 @@ def check_encoder_epilogue(recorder, frame):
     t_d, how = device_ms(lambda: ek.encoder_epilogue_cuda(x, a, enc, eps),
                          SYMBOLS["encoder_epilogue"])
     nbytes = P * C * (4 + 2 + 4) + (C * C + 2 * C * Fd) * 2
-    ops = 2 * P * (C * C + 2 * C * Fd)
+    ops = ek.flops(P, C, Fd)
     b, by = bound_ms(nbytes, ops, BF16_FLOPS)
     # device ms against the number of 64-row tiles (one, one per SM, two per
     # SM) on seeded rows of the same widths: flat means a tile's own latency
@@ -650,15 +630,8 @@ def check_rotated_overlap(recorder, frames_to_check):
         t_w, how_w = device_ms(lambda: nk.pairwise_overlap_cuda(boxes))
         one = torch.empty(1, device=boxes.device)
         t_floor, _ = device_ms(one.zero_)   # one launch's own device time
-        # operations this frame's boxes need: a separating-axis test for
-        # each upper pair (67 f32 operations: the axes' cosines, the four
-        # projections against the summed half extents, the margin), and a
-        # clip only for a pair whose area is not 0 (~300: 4 passes over
-        # <= 8 vertices, two cross products, a compare and an interpolation
-        # each, then the shoelace)
-        pairs = n * (n - 1) // 2
-        overlapping = res["per_frame"][frame]["overlapping_pairs"]
-        ops = pairs * 67 + overlapping * 300
+        # operations this frame's boxes need (nms_kernel.flops)
+        ops = nk.flops(n, res["per_frame"][frame]["overlapping_pairs"])
         nbytes = n * 9 * 4 + n * n * 4
         b, by = bound_ms(nbytes, ops, F32_FLOPS)
         res.update({"ms": t_k, "device_ms": t_d, "device_ms_by": how,
@@ -750,6 +723,129 @@ def check_parity(frames):
     check(not failed, f"bf16 vs fp32 parity failed on {failed}")
 
 
+def check_runtime(engine, frames, tmp):
+    """Phase 7: the CLI path on the three frames (module docstring)."""
+    from dsvt_ai_trt_tpu_torch import cli, kernels
+    from dsvt_ai_trt_tpu_torch.io.output import load_txt
+    data = os.path.join(tmp, "frames")
+    os.makedirs(data)
+    names = {}
+    for i, (name, (pts, n)) in enumerate(frames.items()):
+        names[f"{i:06d}"] = name
+        pts[: int(n)].tofile(os.path.join(data, f"{i:06d}.bin"))
+    common = ["--precision", engine.cfg.precision, "--weights", ""]
+
+    def infer(out, *extra):
+        cli.main(["infer", *common, "--data", data, "--out",
+                  os.path.join(tmp, out), *extra])
+        return {f: load_txt(os.path.join(tmp, out, f + ".txt"))[1]
+                for f in names}
+
+    t0 = time.perf_counter()
+    for tag, extra in (("", []), ("_host_nms", ["--host-nms"])):
+        cli.main(["build", *common, *extra, "--engine",
+                  os.path.join(tmp, f"dsvt{tag}.engine")])
+    build_s = time.perf_counter() - t0
+    kernels.reset_counts()
+    stream = infer("stream", "--engine", os.path.join(tmp, "dsvt.engine"),
+                   "--pipeline-depth", "2")
+    counts = kernels.counts()
+    want = {k: v * (len(frames) + 1) for k, v in PER_FRAME.items()}
+    check(counts == want, f"cli infer launch counts {counts} != {want} "
+          f"({len(frames)} frames and the warm-up frame)")
+    out = {"build_seconds": build_s, "launches": counts, "frames": {}}
+    for f, name in names.items():
+        dets = engine(*frames[name])
+        ref = dets.boxes[: int(dets.count)].cpu().numpy()
+        check(stream[f].shape == ref.shape,
+              f"cli infer {name}: {len(stream[f])} rows vs {len(ref)}")
+        np.testing.assert_allclose(stream[f], ref, atol=1e-4, rtol=1e-4)
+        out["frames"][name] = {"rows": len(ref), "max_abs_err_vs_engine":
+                               float(np.abs(stream[f] - ref).max())}
+    for mode, extra in (("host_nms", ["--host-nms", "--engine",
+                                      os.path.join(tmp, "dsvt_host_nms.engine")]),
+                        ("scan_batch_2", ["--scan-batch", "2"])):
+        got = infer(mode, *extra)
+        for f, name in names.items():
+            check(got[f].shape == stream[f].shape,
+                  f"cli infer {mode} {name}: {len(got[f])} rows vs "
+                  f"{len(stream[f])} with NMS on the card")
+            np.testing.assert_allclose(got[f], stream[f], atol=1e-4, rtol=1e-4)
+            out["frames"][name][f"{mode}_max_abs_err"] = float(
+                np.abs(got[f] - stream[f]).max())
+    return out
+
+
+def check_waymo(tmp):
+    """Phase 8: WAYMO_CONFIG at full width on the densified seeded frame
+    (module docstring); ``cli stats`` prints the frame's occupancy."""
+    import torch
+    from dsvt_ai_trt_tpu_torch import bench, cli, kernels, weights
+    from dsvt_ai_trt_tpu_torch.config import WAYMO_CONFIG
+    from dsvt_ai_trt_tpu_torch.runtime.infer import Engine, cap_table
+    cfg = dataclasses.replace(WAYMO_CONFIG, precision="bf16")
+    (pts, n), = bench.densify([bench.waymo_base_frame()],
+                              bench.WAYMO_POINTS, cfg.max_points)
+    data = os.path.join(tmp, "waymo_dense")
+    os.makedirs(data)
+    pts[: int(n)].tofile(os.path.join(data, "000000.bin"))
+    cfg_path = os.path.join(tmp, "waymo.json")
+    with open(cfg_path, "w") as f:
+        f.write(cfg.to_json())
+    cli.main(["stats", "--config", cfg_path, "--data", data])
+
+    engine = Engine(weights.random_params(cfg, 0), cfg).warmup()
+    engine(pts, n)
+    torch.cuda.synchronize()
+    recorder = Recorder()
+    with recorder:
+        kernels.reset_counts()
+        recorder.frame = "waymo"
+        dets = engine(pts, n)
+        torch.cuda.synchronize()
+        counts = kernels.counts()
+    check(counts == PER_FRAME, f"waymo launch counts {counts} != {PER_FRAME}")
+    occ = dets.occupancy.cpu().tolist()
+    caps = cap_table(cfg)[1].tolist()
+    check(all(o < c for o, c in zip(occ, caps)),
+          f"waymo occupancy {occ} reaches a cap of {caps}")
+    check(bool(torch.isfinite(dets.boxes).all())
+          and list(dets.boxes.shape) == [cfg.top_k, 9], "waymo: bad boxes")
+    res = {"points": int(n), "occupancy": occ, "caps": caps,
+           "boxes": int(dets.count), "launches": counts,
+           "ms": cuda_ms(lambda: engine(pts, n), reps=5, warmup=1)}
+    for name, fn in (("set_attention", check_set_attention),
+                     ("segment_max", lambda r, f: check_segment_max(
+                         r, f, ragged=False))):
+        k = fn(recorder, ["waymo"])
+        res[name] = {key: k[key] for key in (
+            "ms", "device_ms", "device_ms_by", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "max_abs_err") if key in k}
+        res[name]["bound_share"] = k["bound_ms"] / k["device_ms"]
+        res[name]["shapes"] = ({key: k[key] for key in ("S", "K", "C", "H",
+                                                        "set_count")}
+                               if name == "set_attention" else
+                               [{key: c[key] for key in (
+                                   "N", "C", "starts_only", "defined_rows",
+                                   "device_ms")} for c in k["calls"]])
+    return res
+
+
+def run_bench(frames):
+    """Phase 9: the package bench in this process on its default frames
+    (the three frames, and the Waymo base frame for its Waymo pass); few
+    iterations."""
+    from dsvt_ai_trt_tpu_torch import bench
+    res = bench.main(["--iters", "2", "--trace-iters", "4"])
+    for key in ("device_ms_per_frame", "stages_device_ms", "flops_g", "mfu",
+                "waymo_ms", "waymo_device_ms"):
+        check(res.get(key) is not None, f"bench: {key} is null")
+    check(list(res)[-3:] == ["metric", "value", "unit"],
+          "bench: the headline keys are not last")
+    check(res["frames"] == len(frames), "bench: wrong frame count")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -760,7 +856,7 @@ def main() -> int:
 
 
 def _main(torch) -> int:
-    from dsvt_ai_trt_tpu_torch import kernels, weights
+    from dsvt_ai_trt_tpu_torch import bench, kernels, weights
     from dsvt_ai_trt_tpu_torch.config import DEFAULT_CONFIG
     from dsvt_ai_trt_tpu_torch.runtime.infer import Engine
 
@@ -768,17 +864,13 @@ def _main(torch) -> int:
     per_kernel = kernels.build_all()
     log({"phase": "build", "seconds": time.perf_counter() - t0,
          "per_kernel_seconds": per_kernel})
-    card = card_line()
+    card = bench.card_line()
     log({"phase": "card", "nvidia_smi": card,
          "torch": torch.__version__, "cuda": torch.version.cuda})
 
     cfg = dataclasses.replace(DEFAULT_CONFIG, precision="bf16")
     engine = Engine(weights.random_params(cfg, 0), cfg)
-    frames = {
-        "dense_seed0": entry_frame(cfg, 20000, 0),
-        "sparse_seed1": entry_frame(cfg, 4000, 1, half_extent=20.0),
-        "dense_seed2": entry_frame(cfg, 20000, 2),
-    }
+    frames = bench.synthetic_frames(cfg)
     records, counts, recorder = run_main_path(engine, frames)
     for rec in records.values():
         log({"phase": "frame", **rec})
@@ -812,6 +904,11 @@ def _main(torch) -> int:
 
     log({"phase": "golden", **check_tiny_golden()})
     check_parity(frames)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log({"phase": "runtime", **check_runtime(engine, frames, tmp)})
+        log({"phase": "waymo", **check_waymo(tmp)})
+    run_bench(frames)               # prints its own line
 
     sources = {name: "dsvt_ai_trt_tpu_torch/csrc/" + kernels.SPECS[name][0]
                for name in PER_FRAME}

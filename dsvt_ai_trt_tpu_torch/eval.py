@@ -1,11 +1,11 @@
 """Order-insensitive box-set comparison for parity checking (a copy of the
-JAX package's eval.py, with the NumPy box geometry of its io/host_nms.py;
+JAX package's eval.py, on the NumPy box geometry of ``io/host_nms.py``;
 the port imports nothing of that package).
 
 The reference's box *sets* are stable but their order is not (atomicAdd
 compaction, SURVEY §2.4-5), so parity between two runs/engines is measured
 by greedy class-aware matching on BEV IoU, not row order.  Used by
-chip_smoke.py for the bf16-vs-fp32 parity on the card.
+chip_smoke.py for the bf16-vs-fp32 parity on the card and by ``cli eval``.
 """
 
 from __future__ import annotations
@@ -14,46 +14,7 @@ from typing import Dict
 
 import numpy as np
 
-
-def _corners(boxes: np.ndarray) -> np.ndarray:
-    cx, cy = boxes[:, 0], boxes[:, 1]
-    hx, hy = boxes[:, 4] / 2, boxes[:, 3] / 2
-    ang = boxes[:, 6]
-    ox = np.stack([-hx, hx, hx, -hx], 1)
-    oy = np.stack([-hy, -hy, hy, hy], 1)
-    c, s = np.cos(ang)[:, None], np.sin(ang)[:, None]
-    return np.stack([ox * c - oy * s + cx[:, None],
-                     ox * s + oy * c + cy[:, None]], -1)
-
-
-def _clip_area(pa: np.ndarray, pb: np.ndarray) -> float:
-    """Sutherland–Hodgman intersection area of two convex quads."""
-    poly = list(pa)
-    for e in range(4):
-        a, b = pb[e], pb[(e + 1) % 4]
-        ex, ey = b[0] - a[0], b[1] - a[1]
-        out = []
-        n = len(poly)
-        if n < 3:
-            return 0.0
-        for i in range(n):
-            cur, nxt = poly[i], poly[(i + 1) % n]
-            dc = ex * (cur[1] - a[1]) - ey * (cur[0] - a[0])
-            dn = ex * (nxt[1] - a[1]) - ey * (nxt[0] - a[0])
-            if dc >= 0:
-                out.append(cur)
-            if (dc >= 0) != (dn >= 0):
-                t = dc / (dc - dn)
-                out.append((cur[0] + t * (nxt[0] - cur[0]),
-                            cur[1] + t * (nxt[1] - cur[1])))
-        poly = out
-    if len(poly) < 3:
-        return 0.0
-    area = 0.0
-    for i in range(len(poly)):
-        j = (i + 1) % len(poly)
-        area += poly[i][0] * poly[j][1] - poly[j][0] * poly[i][1]
-    return abs(area) / 2
+from .io.host_nms import _clip_area, _corners
 
 
 def _bev_iou(a: np.ndarray, b: np.ndarray) -> float:

@@ -9,7 +9,8 @@ helper.h:46-52 — a batch runner should skip/flag instead, SURVEY §5).
 from __future__ import annotations
 
 import logging
-from typing import Tuple
+import os
+from typing import List, Tuple
 
 import numpy as np
 
@@ -28,3 +29,10 @@ def load_bin(path: str, max_points: int) -> Tuple[np.ndarray, np.int32]:
     buf = np.zeros((max_points, 4), np.float32)
     buf[:n] = pts[:n]
     return buf, np.int32(n)
+
+
+def frame_paths(data_dir: str) -> List[str]:
+    """The .bin frames of a directory, in name order."""
+    return sorted(
+        os.path.join(data_dir, f) for f in os.listdir(data_dir)
+        if f.endswith(".bin"))

@@ -2,17 +2,21 @@
 
 Each source is compiled by ``nvcc`` for sm_90a into its own shared library
 with a plain C interface, and bound with ``ctypes``.  Libraries go to
-``build/kernels/<hash>/`` beside the package (``DSVT_KERNEL_DIR`` overrides
-the root), keyed by a hash of the sources and flags, so an edited source
-builds anew and an unchanged one is built once.  ``build_all`` starts every
-``nvcc`` at once; ``lib(name)`` builds what is missing on first use.
+``build/kernels/<digest>/`` beside the package (``DSVT_KERNEL_DIR``
+overrides the root), keyed by ``digest()``, a hash of the sources and
+flags, so an edited source builds anew and an unchanged one is built once.
+``build_all`` starts every ``nvcc`` at once; ``lib(name)`` builds what is
+missing on first use; ``install`` puts an engine artifact's library there
+instead (runtime/compile.py).
 
 Nothing here runs at import: the CPU tests import every module, and the
 CPU has no ``nvcc``.
 
-Launch counts: each kernel wrapper calls ``count(name)`` exactly where it
-launches its kernel, and nowhere else, so a run can show that the main path
-went through the kernels (``reset_counts`` / ``counts``).
+Launch counts: each kernel wrapper calls ``count(name, flops)`` exactly
+where it launches its kernel, and nowhere else, so a run can show that the
+main path went through the kernels (``reset_counts`` / ``counts``).  Inside
+``flop_tally`` the same call also adds the launch's FLOPs, from the formula
+beside the wrapper, for runtime/profiler.py's counts.
 
 A test may build and load a variant of a kernel with extra ``-D`` defines
 (``lib(name, defines={"B4_SLOTS": 4})``) to drive a code path that the main
@@ -22,6 +26,7 @@ never pass ``defines``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -29,7 +34,7 @@ import shutil
 import subprocess
 import tempfile
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional
 
 import torch
 
@@ -51,16 +56,25 @@ SPECS = {
                         [_P, _I, _P, _I, _P, _P]),
 }
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+ARCH = "sm_90a"
+NVCC_FLAGS = ["-gencode", f"arch=compute_90a,code={ARCH}", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
 _libs: Dict[tuple, ctypes.CDLL] = {}
 _counts: Dict[str, int] = {name: 0 for name in SPECS}
+_flop_tallies: List[Dict[str, float]] = []
 
 
-def count(name: str) -> None:
-    """Record one launch of kernel ``name`` (called by its wrapper only)."""
+def count(name: str, flops: Optional[Callable[[], float]] = None) -> None:
+    """Record one launch of kernel ``name`` (called by its wrapper only,
+    where it launches).  ``flops`` gives the launch's FLOPs from the formula
+    kept beside the wrapper; it is called only inside ``flop_tally``, since
+    a formula may read a count back from the card."""
     _counts[name] += 1
+    if _flop_tallies and flops is not None:
+        n = float(flops())
+        for tally in _flop_tallies:
+            tally[name] = tally.get(name, 0.0) + n
 
 
 def reset_counts() -> None:
@@ -72,6 +86,20 @@ def counts() -> Dict[str, int]:
     return dict(_counts)
 
 
+@contextlib.contextmanager
+def flop_tally() -> Iterator[Dict[str, float]]:
+    """A dict that collects, per kernel name, the FLOPs of every kernel
+    launch made inside the block (``torch.utils.flop_counter`` sees nothing
+    inside a ``ctypes`` launch).  Tallies nest."""
+    tally: Dict[str, float] = {}
+    _flop_tallies.append(tally)
+    try:
+        yield tally
+    finally:   # by identity: two tallies may hold equal counts
+        del _flop_tallies[next(i for i, t in enumerate(_flop_tallies)
+                               if t is tally)]
+
+
 def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     found = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
@@ -81,19 +109,44 @@ def _nvcc() -> str:
     return found
 
 
-def _build_dir() -> str:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def digest() -> str:
+    """Hash of the nvcc flags and every source in ``csrc/``: the name of the
+    build directory, and the key an engine artifact is stamped with."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in sorted(SPECS):
         with open(os.path.join(_CSRC, SPECS[name][0]), "rb") as f:
-            digest.update(f.read())
+            h.update(f.read())
     for extra in sorted(os.listdir(_CSRC)):
         if extra.endswith(".cuh"):
             with open(os.path.join(_CSRC, extra), "rb") as f:
-                digest.update(f.read())
+                h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _build_dir() -> str:
     root = os.environ.get("DSVT_KERNEL_DIR") or os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         "build", "kernels")
-    return os.path.join(root, digest.hexdigest()[:16])
+    return os.path.join(root, digest())
+
+
+def library_path(name: str) -> str:
+    """Where kernel ``name``'s library of this tree's sources lives."""
+    return _so_path(name)
+
+
+def install(name: str, data: bytes) -> str:
+    """Put a library of kernel ``name`` built elsewhere from the same
+    sources (an engine artifact's) where ``lib`` finds it, unless one is
+    there already; returns its path."""
+    so = _so_path(name)
+    if not os.path.exists(so):
+        os.makedirs(os.path.dirname(so), exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(so))
+        with os.fdopen(fd, "wb") as f:
+            f.write(data)
+        os.replace(tmp, so)   # atomic
+    return so
 
 
 def _define_flags(defines: Optional[Dict[str, int]]) -> List[str]:

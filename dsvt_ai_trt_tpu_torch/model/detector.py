@@ -7,10 +7,16 @@ top-k decode + score filter -> rotated NMS (kernel B4).
 
 ``forward`` runs on ``device`` (default "cuda", which raises without a
 card; tests pass "cpu").  The parameters must already live there
-(``weights.from_jax_params(params, device)``).  Each stage runs under a
-``torch.profiler.record_function`` label (STAGES), so a profiler trace
-splits a frame's time by stage; outside a profiler the labels cost a few
-microseconds per frame.
+(``weights.from_jax_params(params, device)``).  Each stage runs under
+``runtime.profiler.stage_scope`` (a ``torch.profiler.record_function``
+label, STAGES), so a profiler trace splits a frame's time by stage and
+``runtime.profiler.count_flops`` counts FLOPs by stage; outside a profiler
+the labels cost a few microseconds per frame.
+
+``forward_scan`` is the throughput form of the JAX package's ``lax.scan``
+batching: the frames of a batch one after another, outputs stacked.
+``forward_batch`` (the vmap form, for data parallelism over several
+devices) waits for the multi-device slice.
 """
 
 from __future__ import annotations
@@ -18,7 +24,6 @@ from __future__ import annotations
 from typing import Dict, NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from ..config import DSVTConfig
 from ..ops import nms as nms_ops
@@ -27,6 +32,7 @@ from ..ops.common import resolve_device
 from ..ops.postprocess import Detections, decode_and_filter
 from ..ops.voxelize import Pillars, voxelize
 from ..ops.windows import partition
+from ..runtime.profiler import stage_scope
 from .backbone2d import backbone2d_forward
 from .backbone3d import backbone3d_forward
 from .head import head_forward
@@ -63,29 +69,29 @@ def forward(params: Dict, points, num_points, cfg: DSVTConfig,
     points, num = _inputs(params, points, num_points, device)
     precision = cfg.precision
     use_kernels = cfg.use_pallas
-    with record_function("voxelize"):
+    with stage_scope("voxelize"):
         pillars = voxelize(points, num, cfg)
-    with record_function("vfe"):
+    with stage_scope("vfe"):
         feats = vfe_forward(pillars, params["vfe"], cfg,
                             use_kernels=use_kernels)
-    with record_function("partition"):
+    with stage_scope("partition"):
         wparts, sparts = _partitions(pillars, cfg)
-    with record_function("backbone3d"):
+    with stage_scope("backbone3d"):
         feats = backbone3d_forward(feats, wparts, sparts, params, cfg,
                                    use_kernels=use_kernels)
-    with record_function("bev_scatter"):
+    with stage_scope("bev_scatter"):
         if precision == "bf16":
             feats = feats.to(torch.bfloat16)
         bev = map_to_bev(feats, pillars.coords, pillars.pillar_valid,
                          (cfg.grid_size[1], cfg.grid_size[0]))
-    with record_function("backbone2d"):
+    with stage_scope("backbone2d"):
         bev = backbone2d_forward(bev, params["backbone2d"], precision)
-    with record_function("head"):
+    with stage_scope("head"):
         head_out = head_forward(bev, params["head"], precision, lazy=True)
-    with record_function("decode"):
+    with stage_scope("decode"):
         dets = decode_and_filter(head_out, cfg, head_params=params["head"])
     if with_nms:
-        with record_function("nms"):
+        with stage_scope("nms"):
             boxes, count = nms_ops.nms(dets.boxes, dets.count,
                                        cfg.nms_threshold,
                                        use_kernels=use_kernels)
@@ -93,6 +99,18 @@ def forward(params: Dict, points, num_points, cfg: DSVTConfig,
     occupancy = torch.stack([pillars.point_count, pillars.pillar_count]
                             + [sp.set_count for sp in sparts])
     return dets._replace(occupancy=occupancy)
+
+
+def forward_scan(params: Dict, points, num_points, cfg: DSVTConfig,
+                 with_nms: bool = False, device="cuda") -> Detections:
+    """points [B, max_points, 4], num_points [B]: each frame through
+    ``forward`` in turn; returns stacked Detections (boxes [B, top_k, 9],
+    count [B], occupancy [B, 2 + n_window_specs])."""
+    dets = [forward(params, points[b], num_points[b], cfg, with_nms, device)
+            for b in range(len(points))]
+    return Detections(boxes=torch.stack([d.boxes for d in dets]),
+                      count=torch.stack([d.count for d in dets]),
+                      occupancy=torch.stack([d.occupancy for d in dets]))
 
 
 class IntermediateOutputs(NamedTuple):

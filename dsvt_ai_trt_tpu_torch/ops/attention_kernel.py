@@ -90,8 +90,18 @@ def set_attention_cuda(qkv_flat: torch.Tensor, key_mask: torch.Tensor,
     kernels.launch("set_attention", qkv_flat.data_ptr(),
                    key_mask.data_ptr(), count.data_ptr(), out.data_ptr(),
                    S, K, C, num_heads)
-    kernels.count("set_attention")
+    kernels.count("set_attention",
+                  lambda: flops(min(int(count), S), K, C))
     return out
+
+
+def flops(live_sets: int, K: int, C: int) -> int:
+    """FLOPs of kernel B1 on ``live_sets`` sets of K slots: Q·Kᵀ and P·V,
+    2·K·K·D each per head, so 4·K²·C a set (H·D = C).  The softmax's
+    elementwise work is left out, as ``torch.utils.flop_counter`` counts
+    none, so the plain version counted by it on the same live sets gives
+    the same number."""
+    return 4 * live_sets * K * K * C
 
 
 def set_attention_fused_flat(qkv_flat: torch.Tensor, key_mask: torch.Tensor,

@@ -115,8 +115,16 @@ def encoder_epilogue_cuda(x: torch.Tensor, attn_raw: torch.Tensor, enc: dict,
                    wo.data_ptr(), bo.data_ptr(), w1.data_ptr(),
                    b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                    ln.data_ptr(), out.data_ptr(), P, C, F, float(eps))
-    kernels.count("encoder_epilogue")
+    kernels.count("encoder_epilogue", lambda: flops(P, C, F))
     return out
+
+
+def flops(P: int, C: int, F: int) -> int:
+    """FLOPs of kernel B2 on P rows: the out-projection (C×C) and the FFN
+    (C×F, F×C) products, 2 per multiply-add.  The GELU and LayerNorms are
+    left out, as ``torch.utils.flop_counter`` counts none for the plain
+    version."""
+    return 2 * P * (C * C + 2 * C * F)
 
 
 def encoder_epilogue(x: torch.Tensor, attn_raw: torch.Tensor, enc: dict,

@@ -119,8 +119,18 @@ def pairwise_overlap_cuda(boxes: torch.Tensor) -> torch.Tensor:
         return out
     kernels.launch("rotated_overlap", boxes.data_ptr(), boxes.stride(0),
                    out.data_ptr(), n, None)
-    kernels.count("rotated_overlap")
+    kernels.count("rotated_overlap", lambda: flops(n, int((out > 0).sum())))
     return out
+
+
+def flops(n: int, overlapping: int) -> int:
+    """Operations kernel B4 needs for n boxes of which ``overlapping`` upper
+    pairs have an area that is not 0: a separating-axis test for each upper
+    pair (67 f32 operations: the axes' cosines, the four projections against
+    the summed half extents, the margin), and a clip only for an
+    overlapping pair (~300: 4 passes over <= 8 vertices, two cross
+    products, a compare and an interpolation each, then the shoelace)."""
+    return 67 * (n * (n - 1) // 2) + 300 * overlapping
 
 
 def pairwise_overlap(boxes: torch.Tensor) -> torch.Tensor:

@@ -69,8 +69,22 @@ def segmented_max_cuda(feats: torch.Tensor, is_start: torch.Tensor,
     kernels.launch("segment_max", feats.data_ptr(), is_start.data_ptr(),
                    out.data_ptr(), N, C,
                    int(feats.dtype == torch.bfloat16), int(starts_only), cap)
-    kernels.count("segment_max")
+    kernels.count("segment_max", lambda: flops(defined_rows(is_start, cap), C))
     return out
+
+
+def defined_rows(is_start: torch.Tensor, cap: int) -> int:
+    """Rows of the stream whose segment is at most ``cap`` rows long: the
+    rows the contract defines (and the kernel reads)."""
+    seg = (torch.cumsum(is_start.long(), 0) - 1).clamp(min=0)
+    lengths = torch.bincount(seg)
+    return int(lengths[lengths <= cap].sum())
+
+
+def flops(rows: int, C: int) -> int:
+    """Operations of kernel B3 on ``rows`` defined rows of C channels: one
+    compare per element."""
+    return rows * C
 
 
 def segmented_max(feats: torch.Tensor, is_start: torch.Tensor, cap: int,

@@ -1,13 +1,24 @@
-"""Engine and frame loop: the reference's -d mode, in PyTorch.
+"""Frame loops: the reference's -d mode, in PyTorch (port of the JAX
+package's runtime/infer.py).
 
-``Engine(params, cfg, device="cuda")`` keeps the weights resident on the
-device and answers ``engine(points, n) -> Detections``.  ``run_frames``
-iterates .bin frames, writes one reference-format result txt per frame
-(first line = seconds) and warns when a frame's occupancy reaches a static
-cap (points, pillars or sets were then silently dropped, as the reference
-does).  Port of the JAX package's runtime/compile.py:Engine and
-runtime/infer.py:run_frames; the jax.export build/load, the scan mode and
-the benchmark are not ported yet.
+``run_frames`` iterates .bin frames through an ``Engine`` and writes one
+reference-format result txt per frame (first line = seconds), warning when
+a frame's occupancy reaches a static cap (points, pillars or sets were then
+dropped, as the reference does).  It is software-pipelined: frames are
+staged in pageable host memory; dispatching one copies it into one of
+``pipeline_depth + 1`` reusable pinned buffers and from there to the card
+without blocking, runs the engine and starts non-blocking copies of boxes,
+count and occupancy into pinned buffers, then records a CUDA event;
+``finish`` waits on that event.  Up to ``pipeline_depth`` frames are in
+flight, so the pinned memory held does not grow with the frame count.
+``forward`` itself blocks the host inside a frame (``ops/bev.py``'s boolean
+index, every NMS round's test, ``ops/postprocess.py``'s index table), so
+the pipeline hides less here than on the JAX package's TPU.
+
+``run_frames_scan`` is the throughput mode (``model.detector.forward_scan``
+over groups of ``batch`` frames) and ``benchmark`` the steady-state ms per
+frame of the pipelined loop.  ``Engine`` lives in runtime/compile.py and is
+re-exported here.
 """
 
 from __future__ import annotations
@@ -21,45 +32,20 @@ import numpy as np
 import torch
 
 from ..config import DSVTConfig
+from ..io.host_nms import nms_host
 from ..io.output import save_txt
 from ..io.pointcloud import load_bin
-from ..model.detector import forward
-from ..ops.common import resolve_device
-from ..ops.postprocess import Detections
-from ..weights import from_jax_params
+from ..model.detector import forward_scan
+from .compile import Engine
+
+__all__ = ["Engine", "run_frames", "run_frames_scan", "benchmark",
+           "pipelined_ms", "cap_table"]
 
 log = logging.getLogger("dsvt_torch.infer")
 
 
-class Engine:
-    """Callable wrapper: ``dets = engine(points, num_points)``.
-
-    params: the nested NumPy dict of ``weights.random_params`` /
-    ``prepare_params`` (either package's), or one already carried to torch
-    by ``from_jax_params``.  Raises when ``device`` is "cuda" and no card
-    is present.
-    """
-
-    def __init__(self, params, cfg: DSVTConfig, device="cuda",
-                 with_nms: bool = True):
-        self.cfg = cfg
-        self.device = resolve_device(device)
-        leaf = params["vfe"]["l0"]["w"]
-        if isinstance(leaf, torch.Tensor):
-            if leaf.device.type != self.device.type:
-                raise ValueError(f"parameters are on {leaf.device}, the "
-                                 f"engine runs on {self.device}")
-            self.params = params
-        else:
-            self.params = from_jax_params(params, self.device)
-        self.with_nms = with_nms
-
-    def __call__(self, points, num_points) -> Detections:
-        return forward(self.params, points, num_points, self.cfg,
-                       self.with_nms, device=self.device)
-
-
-def _cap_table(cfg: DSVTConfig):
+def cap_table(cfg: DSVTConfig):
+    """Cap names and values in ``Detections.occupancy`` order."""
     names = ["max_kept_points", "max_pillars"] + [
         f"max_sets[{i}]" for i in range(len(cfg.window_specs))]
     caps = np.array([cfg.max_kept_points, cfg.max_pillars]
@@ -67,39 +53,199 @@ def _cap_table(cfg: DSVTConfig):
     return names, caps
 
 
-def run_frames(engine: Engine, paths: List[str],
-               out_dir: Optional[str] = None) -> List[dict]:
-    """Run inference over .bin frames; returns per-frame dicts with
-    boxes/count/seconds/saturated.  A frame that cannot be read is skipped
-    and reported (the reference exits instead)."""
-    cfg = engine.cfg
+def _finish(cfg: DSVTConfig, path: str, boxes: np.ndarray, count: int,
+            occ: np.ndarray, seconds: float, out_dir: Optional[str],
+            host_nms: bool) -> dict:
+    """One frame's outputs on the host: warn about the caps its occupancy
+    reached (every cap truncates silently inside the forward pass, as the
+    reference's, points2Features.cu:697/751), run the host NMS if asked,
+    write the result txt; returns the frame's result."""
+    names, caps = cap_table(cfg)
+    saturated = [names[i] for i in range(len(caps)) if occ[i] >= caps[i]]
+    if saturated:
+        log.warning("%s: occupancy hit static cap(s) %s (occupancy %s vs caps "
+                    "%s); points/pillars/sets were silently dropped; raise "
+                    "the caps (see `cli stats`)", os.path.basename(path),
+                    saturated, occ.tolist(), caps.tolist())
+    if host_nms:
+        boxes, count = nms_host(boxes, count, cfg.nms_threshold)
+    name = _name(path)
     if out_dir:
-        os.makedirs(out_dir, exist_ok=True)
-    cap_names, caps = _cap_table(cfg)
-    results = []
-    for path in paths:
-        name = os.path.splitext(os.path.basename(path))[0]
+        save_txt(boxes, count, seconds, os.path.join(out_dir, name + ".txt"))
+    log.info("%s: %d boxes, %.1f ms", name, count, seconds * 1e3)
+    return {"frame": name, "boxes": boxes[:count], "count": count,
+            "seconds": seconds, "saturated": saturated}
+
+
+def _stage(paths: List[str], cfg: DSVTConfig, results: list):
+    """Load every frame into pageable host memory.  ``results`` gets one
+    slot per path, in order; a frame that cannot be read is skipped and
+    reported in its slot (the reference exits).  Returns (slot, path,
+    points, n) of the good frames."""
+    staged = []
+    for i, path in enumerate(paths):
+        results.append(None)
         try:
             pts, n = load_bin(path, cfg.max_points)
         except (IOError, ValueError) as exc:
             log.error("skipping bad frame %s: %s", path, exc)
-            results.append({"frame": name, "error": str(exc)})
+            results[i] = {"frame": _name(path), "error": str(exc)}
             continue
-        t0 = time.perf_counter()
-        dets = engine(pts, n)
-        boxes = dets.boxes.cpu().numpy()      # the copy waits for the device
-        count = int(dets.count)
-        occ = dets.occupancy.cpu().numpy()
-        seconds = time.perf_counter() - t0
-        saturated = [cap_names[i] for i in range(len(caps)) if occ[i] >= caps[i]]
-        if saturated:
-            log.warning("%s: occupancy hit static cap(s) %s (occupancy %s vs "
-                        "caps %s); points/pillars/sets were silently dropped",
-                        os.path.basename(path), saturated, occ.tolist(),
-                        caps.tolist())
-        if out_dir:
-            save_txt(boxes, count, seconds, os.path.join(out_dir, name + ".txt"))
-        log.info("%s: %d boxes, %.1f ms", name, count, seconds * 1e3)
-        results.append({"frame": name, "boxes": boxes[:count], "count": count,
-                        "seconds": seconds, "saturated": saturated})
+        staged.append((i, path, torch.from_numpy(pts), n))
+    return staged
+
+
+def _name(path: str) -> str:
+    return os.path.splitext(os.path.basename(path))[0]
+
+
+class _PinnedRing:
+    """``slots`` page-locked frame buffers used in turn for the copies to
+    the card.  A buffer is refilled only once the event recorded after its
+    last copy has completed, so a non-blocking copy never reads a buffer
+    being overwritten."""
+
+    def __init__(self, slots: int, shape):
+        self.bufs = [torch.empty(shape, dtype=torch.float32, pin_memory=True)
+                     for _ in range(slots)]
+        self.events: List[Optional[torch.cuda.Event]] = [None] * slots
+        self.next = 0
+
+    def to(self, pts: torch.Tensor, device: torch.device) -> torch.Tensor:
+        i, self.next = self.next, (self.next + 1) % len(self.bufs)
+        if self.events[i] is not None:
+            self.events[i].synchronize()
+        self.bufs[i].copy_(pts)
+        out = self.bufs[i].to(device, non_blocking=True)
+        self.events[i] = torch.cuda.Event()
+        self.events[i].record()
+        return out
+
+
+class _InFlight:
+    """One dispatched frame: its outputs copied (or being copied) to host
+    buffers, and on the card the event recorded after those copies."""
+
+    def __init__(self, dets, device: torch.device):
+        pin = device.type == "cuda"
+        self.host = []
+        for t in (dets.boxes, dets.count, dets.occupancy):
+            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+            buf.copy_(t, non_blocking=pin)
+            self.host.append(buf)
+        self.event = None
+        if pin:
+            self.event = torch.cuda.Event()
+            self.event.record()
+
+    def wait(self):
+        """(boxes, count, occupancy) as NumPy, once the copies are done."""
+        if self.event is not None:
+            self.event.synchronize()
+        boxes, count, occ = (t.numpy() for t in self.host)
+        return boxes, int(count), occ
+
+
+def run_frames(engine: Engine, paths: List[str], out_dir: Optional[str] = None,
+               host_nms: bool = False, pipeline_depth: int = 2) -> List[dict]:
+    """Run inference over .bin frames; returns per-frame dicts with
+    boxes/count/seconds/saturated (or error).  Per-frame ``seconds`` is
+    completion to completion, the streaming number; ``pipeline_depth`` 0
+    reads each frame back before dispatching the next.  With ``host_nms``
+    the NumPy NMS runs on each frame's boxes (use an engine built
+    ``with_nms=False``)."""
+    cfg = engine.cfg
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+    results: List[dict] = []
+    staged = _stage(paths, cfg, results)
+    ring = (_PinnedRing(max(pipeline_depth, 0) + 1, (cfg.max_points, 4))
+            if staged and engine.device.type == "cuda" else None)
+    t_prev = time.perf_counter()
+
+    def dispatch(slot, path, pts, n):
+        pts = ring.to(pts, engine.device) if ring else pts.to(engine.device)
+        return slot, path, _InFlight(engine(pts, n), engine.device)
+
+    def finish(slot, path, inflight):
+        nonlocal t_prev
+        boxes, count, occ = inflight.wait()
+        now = time.perf_counter()
+        seconds, t_prev = now - t_prev, now
+        results[slot] = _finish(cfg, path, boxes, count, occ, seconds,
+                                out_dir, host_nms)
+
+    queue: List[tuple] = []
+    for item in staged:
+        queue.append(dispatch(*item))
+        if len(queue) > max(pipeline_depth, 0):
+            finish(*queue.pop(0))
+    for item in queue:
+        finish(*item)
     return results
+
+
+def run_frames_scan(params, cfg: DSVTConfig, paths: List[str],
+                    out_dir: Optional[str] = None, batch: int = 10,
+                    host_nms: bool = False, device="cuda") -> List[dict]:
+    """Throughput mode: frames in groups of ``batch`` through
+    ``forward_scan``, one readback per group.  The tail group is padded by
+    repeating its last frame and the padded outputs are discarded.  Result
+    txts equal ``run_frames``'; per-frame ``seconds`` is the group's wall
+    time over its size.  ``params`` as for ``Engine``."""
+    engine = Engine(params, cfg, device=device, with_nms=not host_nms)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+    results: List[dict] = []
+    staged = _stage(paths, cfg, results)
+    if not staged:
+        return results
+    engine.warmup()
+    for lo in range(0, len(staged), batch):
+        group = staged[lo:lo + batch]
+        padded = group + [group[-1]] * (batch - len(group))
+        t0 = time.perf_counter()
+        points = torch.stack([p for _, _, p, _ in padded]).to(engine.device)
+        dets = forward_scan(engine.params, points,
+                            [n for _, _, _, n in padded], cfg,
+                            engine.with_nms, device=engine.device)
+        boxes_b, count_b, occ_b = (t.cpu().numpy() for t in
+                                   (dets.boxes, dets.count, dets.occupancy))
+        seconds = (time.perf_counter() - t0) / batch
+        for i, (slot, path, _, _) in enumerate(group):
+            results[slot] = _finish(cfg, path, boxes_b[i], int(count_b[i]),
+                                    occ_b[i], seconds, out_dir, host_nms)
+    return results
+
+
+def benchmark(engine: Engine, paths: List[str], iters: int = 3,
+              pipeline_depth: int = 2) -> dict:
+    """Steady-state ms per frame of the frame set after a warm pass, in the
+    deployment's loop: ``pipeline_depth`` frames in flight, outputs copied
+    back without blocking and waited for by event (as ``run_frames``)."""
+    cfg = engine.cfg
+    staged = [load_bin(p, cfg.max_points) for p in paths]
+    staged = [(torch.from_numpy(p).to(engine.device), n) for p, n in staged]
+    engine.warmup()
+    for pts, n in staged:
+        engine(pts, n).count.cpu()
+    return {"ms_per_frame": pipelined_ms(engine, staged, iters, pipeline_depth),
+            "frames": len(staged), "iters": iters}
+
+
+def pipelined_ms(engine: Engine, frames, iters: int,
+                 pipeline_depth: int) -> float:
+    """Host ms per frame of ``iters`` passes over ``frames`` ((points, n)
+    pairs, points already on the engine's device) with ``pipeline_depth``
+    frames in flight, every frame's outputs copied back (``run_frames``'
+    loop without the files)."""
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        queue: List[_InFlight] = []
+        for pts, n in frames:
+            queue.append(_InFlight(engine(pts, n), engine.device))
+            if len(queue) > pipeline_depth:
+                queue.pop(0).wait()
+        for inflight in queue:
+            inflight.wait()
+    return (time.perf_counter() - t0) / (iters * len(frames)) * 1e3

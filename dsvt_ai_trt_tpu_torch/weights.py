@@ -11,6 +11,7 @@ on a device, transposing conv weights to torch's OIHW.
 
 from __future__ import annotations
 
+import struct
 from typing import Dict, List
 
 import numpy as np
@@ -243,6 +244,84 @@ def load_wts(path: str) -> Raw:
             else:
                 raw[name] = arr
     return raw
+
+
+def save_wts(raw: Raw, path: str) -> None:
+    """Write the .wts text format (gen_wts.py:86-99), re-fusing QKV splits."""
+    fused: Dict[str, np.ndarray] = {}
+    pending: Dict[str, Dict[str, np.ndarray]] = {}
+    for name, arr in raw.items():
+        for part in ("query", "key", "value"):
+            suffix = f".{part}"
+            if name.endswith(suffix) and ".in_proj_" in name:
+                pending.setdefault(name[: -len(suffix)], {})[part] = arr
+                break
+        else:
+            fused[name] = arr
+    for base, parts in pending.items():
+        fused[base] = np.concatenate(
+            [parts["query"].ravel(), parts["key"].ravel(), parts["value"].ravel()])
+    with open(path, "w") as f:
+        f.write(f"{len(fused)}\n")
+        for name, arr in fused.items():
+            flat = np.asarray(arr, np.float32).ravel()
+            f.write(f"{name} {flat.size} ")
+            f.write(" ".join(struct.pack(">f", float(v)).hex() for v in flat))
+            f.write("\n")
+
+
+def load_npz(path: str) -> Raw:
+    """An .npz of raw tensors; a fused ``*.in_proj_*`` entry is split into
+    q/k/v thirds of its first axis, each kept 2-D (as the JAX package's)."""
+    data = np.load(path)
+    raw: Raw = {}
+    for name in data.files:
+        arr = np.asarray(data[name], np.float32)
+        if ".in_proj_" in name and not name.endswith((".query", ".key", ".value")):
+            third = arr.shape[0] // 3
+            flat = arr.reshape(arr.shape[0], -1)
+            for i, part in enumerate(("query", "key", "value")):
+                raw[f"{name}.{part}"] = flat[i * third:(i + 1) * third]
+        else:
+            raw[name] = arr
+    return raw
+
+
+def save_npz(raw: Raw, path: str) -> None:
+    np.savez(path, **raw)
+
+
+def load_torch(path: str) -> Raw:
+    """Load a torch checkpoint (on the CPU) and split fused in_proj tensors.
+    Only tensors are read (``weights_only``): a checkpoint is outside input."""
+    import torch
+
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(state, dict) and "state_dict" in state:
+        state = state["state_dict"]
+    raw: Raw = {}
+    for name, tensor in state.items():
+        arr = tensor.detach().cpu().numpy().astype(np.float32)
+        if not name.startswith("module."):
+            name = "module." + name
+        if ".in_proj_" in name:
+            third = arr.shape[0] // 3
+            flat = arr.reshape(arr.shape[0], -1)
+            for i, part in enumerate(("query", "key", "value")):
+                raw[f"{name}.{part}"] = flat[i * third:(i + 1) * third].reshape(
+                    (third,) + arr.shape[1:])
+        else:
+            raw[name] = arr
+    return raw
+
+
+def load_checkpoint(path: str) -> Raw:
+    """.wts, .npz or a torch checkpoint, by the file's extension."""
+    if path.endswith(".wts"):
+        return load_wts(path)
+    if path.endswith(".npz"):
+        return load_npz(path)
+    return load_torch(path)
 
 
 # ---------------------------------------------------------------------------
