@@ -40,10 +40,25 @@ Phases (any failure exits non-zero):
      finite boxes, occupancy under every cap; B1 and B3 held against their
      plain versions on the inputs that frame gave them, and timed with
      bounds;
-  9. bench: ``python -m dsvt_ai_trt_tpu_torch.bench`` in this process on
+  9. training (``check_training``), outside inference mode:
+     ``DEFAULT_CONFIG`` at fp32 and full width on a fixed seeded batch of 2
+     planted scenes (``data.synthetic_batch``): one step's loss and
+     gradients with and without ``remat`` (the JAX per-leaf gate), 6
+     default AdamW steps (every loss finite, the last below the first, no
+     kernel launched: training runs the plain paths), ms per step by CUDA
+     events and peak memory with and without ``remat``, one step traced
+     (``runtime/trace.capture``: device ms, idle share, FLOPs, MFU at 67
+     TFLOP/s fp32); then the trained weights, refolded, through the bf16
+     ``Engine`` on the three frames (launch counts 2/8/8/1 per frame, every
+     top-k box equal at 1e-4 to those of the weights exported as .wts and
+     reloaded);
+     ``cli train`` for 1 + 1 steps with ``--resume`` and ``--export-wts``;
+     ``train_run.main`` for 3 steps with 2 eval scenes (reloaded recall
+     equals trained recall);
+ 10. bench: ``python -m dsvt_ai_trt_tpu_torch.bench`` in this process on
      the three frames (Waymo pass on the Waymo base frame), few
      iterations; its JSON line is printed;
- 10. print the card line, the ``kernels`` JSON line (second to last), and
+ 11. print the card line, the ``kernels`` JSON line (second to last), and
      last the result line ``{"ok": true, "device": {...}}``.
 
 The profile of phase 5 is ``runtime/trace.capture``'s: per stage host ms,
@@ -831,8 +846,176 @@ def check_waymo(tmp):
     return res
 
 
+def grad_gate(name, got, ref):
+    """The JAX package's per-leaf gradient gate (tests/test_training.py):
+    max |d| <= max(5e-3 * leaf max, 5e-4).  Returns |d| / the gate."""
+    d = float((got.double() - ref.double()).abs().max())
+    tol = max(5e-3 * float(ref.abs().max()), 5e-4)
+    check(d <= tol, f"training: gradient of {name} differs by {d:.3e} with "
+          f"and without remat (gate {tol:.3e})")
+    return d / tol
+
+
+def check_training(frames, tmp):
+    """Phase 9 (module docstring): training at DEFAULT_CONFIG fp32, full
+    width, batch 2."""
+    import contextlib
+    import io
+    import torch
+    from dsvt_ai_trt_tpu_torch import cli, kernels, train_run, weights
+    from dsvt_ai_trt_tpu_torch.config import DEFAULT_CONFIG
+    from dsvt_ai_trt_tpu_torch.data import synthetic_batch
+    from dsvt_ai_trt_tpu_torch.parallel.training import (batched_loss,
+                                                         make_train_step)
+    from dsvt_ai_trt_tpu_torch.runtime.infer import Engine
+    from dsvt_ai_trt_tpu_torch.runtime.profiler import count_flops
+    from dsvt_ai_trt_tpu_torch.runtime.trace import capture
+    cfg = dataclasses.replace(DEFAULT_CONFIG, precision="fp32")
+    batch = synthetic_batch(np.random.default_rng(0), cfg, 2)
+    out = {"config": "DEFAULT_CONFIG", "precision": cfg.precision,
+           "batch": 2, "points": [int(n) for n in batch[1].cpu()]}
+
+    def fresh():
+        return weights.from_jax_params(weights.random_params(cfg, 0), "cuda")
+
+    # one step's loss and gradients, remat off then on
+    params = fresh()
+    leaves = weights.named_leaves(params)
+    for _, t in leaves:
+        t.requires_grad_(True)
+    grads, losses = {}, {}
+    for remat in (False, True):
+        loss = batched_loss(params, *batch, cfg, remat=remat)
+        g = torch.autograd.grad(loss, [t for _, t in leaves],
+                                allow_unused=True)
+        grads[remat], losses[remat] = g, loss.item()
+    check(abs(losses[True] - losses[False]) <= 1e-5 * abs(losses[False]),
+          f"training: loss {losses[True]} with remat, {losses[False]} "
+          "without")
+    worst = 0.0
+    for (path, _), a, b in zip(leaves, grads[False], grads[True]):
+        check((a is None) == (b is None), f"training: {path} unused once")
+        if a is not None:
+            worst = max(worst, grad_gate(weights.keystr(path), b, a))
+    out["remat_loss"] = losses
+    out["remat_worst_gate_share"] = worst
+    del grads, params, leaves
+
+    # 6 default steps on the fixed batch (remat on: the card's default)
+    params = fresh()
+    _, step = make_train_step(cfg, params)
+    kernels.reset_counts()
+    curve = [float(step(*batch)) for _ in range(6)]
+    torch.cuda.synchronize()
+    launched = kernels.counts()
+    check(all(np.isfinite(curve)) and curve[-1] < curve[0],
+          f"training: loss did not fall over 6 steps: {curve}")
+    check(not any(launched.values()),
+          f"training launched kernels {launched}: it runs the plain paths")
+    out["loss_curve"] = curve
+
+    # ms per step and peak memory, remat on (these weights) and off
+    other = fresh()
+    _, step_plain = make_train_step(cfg, other, remat=False)
+    out["step"] = {}
+    for name, fn in (("remat", step), ("no_remat", step_plain)):
+        fn(*batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        ms = cuda_ms(lambda: fn(*batch), reps=3, warmup=0)
+        out["step"][name] = {
+            "ms": ms, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "resident_before_gb": resident / 1e9,
+            "gflop": count_flops(fn, *batch).total / 1e9}
+    del other, step_plain
+
+    # one traced step (remat on)
+    prof = capture(step, batch, iters=2)
+    flops = prof.flops.total
+    out["trace"] = {
+        "iters": 2, "host_ms": prof.host_ms_per_iter,
+        "device_span_ms": prof.window_ms_per_iter,
+        "device_busy_ms": prof.device_ms_per_iter,
+        "device_idle_share": prof.idle_share, "gflop": flops / 1e9,
+        "mfu_device_fp32": flops / (prof.device_ms_per_iter / 1e3) / F32_FLOPS,
+        "host_wait_ms": prof.host_wait_ms_per_iter,
+        "host_launch_ms": prof.host_launch_ms_per_iter,
+        "top_device": [{"name": r["name"][:90], "ms": r["ms"],
+                        "calls": r["calls"]} for r in prof.top_ops(8)]}
+
+    # the trained weights through the bf16 kernel path, against the same
+    # weights exported as .wts and reloaded; every top-k box is decoded
+    # (score threshold 0), since a few steps may leave no score above 0.3
+    cfg16 = dataclasses.replace(DEFAULT_CONFIG, precision="bf16",
+                                score_threshold=0.0)
+    wts = os.path.join(tmp, "trained.wts")
+    weights.save_wts(weights.unfold_params(params, cfg), wts)
+    reloaded = weights.from_jax_params(
+        weights.prepare_params(weights.load_wts(wts), cfg), "cuda")
+    trained = Engine(params, cfg16).warmup()
+    again = Engine(reloaded, cfg16).warmup()
+    with torch.inference_mode():
+        kernels.reset_counts()
+        got = {name: trained(pts, n) for name, (pts, n) in frames.items()}
+        torch.cuda.synchronize()
+        counts = kernels.counts()
+        want_counts = {k: v * len(frames) for k, v in PER_FRAME.items()}
+        check(counts == want_counts, f"training: trained-weight launch "
+              f"counts {counts} != {want_counts}")
+        out["engine"] = {"launches": counts, "frames": {}}
+        for name, (pts, n) in frames.items():
+            a, b = got[name], again(pts, n)
+            ca, cb = int(a.count), int(b.count)
+            check(ca == cb, f"training: {ca} boxes with the trained weights, "
+                  f"{cb} with the reloaded .wts on {name}")
+            a, b = a.boxes[:ca].cpu().numpy(), b.boxes[:cb].cpu().numpy()
+            np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4)
+            out["engine"]["frames"][name] = {
+                "boxes": ca, "max_abs_err_vs_reloaded":
+                    float(np.abs(a - b).max()) if ca else 0.0}
+
+    # cli train: 1 step with a checkpoint, then 1 resumed step + export
+    ckpt, cli_wts = os.path.join(tmp, "state.npz"), os.path.join(tmp, "cli.wts")
+    lines = []
+    for extra in (["--ckpt-every", "1"],
+                  ["--resume", ckpt, "--export-wts", cli_wts]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["train", "--steps", "1", "--weights", "", "--ckpt",
+                      ckpt, *extra])
+        lines.append(json.loads(buf.getvalue().strip().splitlines()[-1]))
+    state = np.load(ckpt)
+    check(int(state["step"]) == 2 and int(state["o:[0].count"]) == 2,
+          "cli train: the resumed checkpoint is not at step 2")
+    check(all(np.isfinite(line["loss_last"]) for line in lines),
+          f"cli train: {lines}")
+    folded = weights.prepare_params(weights.load_wts(cli_wts), cfg)
+    last = cfg.num_blocks - 1
+    for key, leaf in (("['head']['hm']['w1']", folded["head"]["hm"]["w1"]),
+                      (f"['blocks'][{last}]['enc'][1]['wq']",
+                       folded["blocks"][last]["enc"][1]["wq"])):
+        check(np.array_equal(leaf, state["p:" + key]),
+              f"cli train: exported {key} differs from the checkpoint's")
+    out["cli_train"] = lines
+
+    # train_run: 3 steps, 2 held-out scenes, export, reload, re-eval
+    res = train_run.main(["--steps", "3", "--eval-scenes", "2",
+                          "--log-every", "1",
+                          "--out", os.path.join(tmp, "train_run.json"),
+                          "--wts", os.path.join(tmp, "train_run.wts")])
+    check(res["wts_roundtrip"]["matches_trained"],
+          f"train_run: reloaded recall {res['wts_roundtrip']['recall']} != "
+          f"trained {res['eval']['recall']}")
+    out["train_run"] = {k: res[k] for k in ("train_seconds", "loss_curve",
+                                            "wts_roundtrip")}
+    out["train_run"]["eval"] = {k: res["eval"][k] for k in
+                                ("recall", "precision", "n_gt", "n_pred")}
+    return out
+
+
 def run_bench(frames):
-    """Phase 9: the package bench in this process on its default frames
+    """Phase 10: the package bench in this process on its default frames
     (the three frames, and the Waymo base frame for its Waymo pass); few
     iterations."""
     from dsvt_ai_trt_tpu_torch import bench
@@ -908,6 +1091,8 @@ def _main(torch) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         log({"phase": "runtime", **check_runtime(engine, frames, tmp)})
         log({"phase": "waymo", **check_waymo(tmp)})
+        with torch.inference_mode(False):
+            log({"phase": "training", **check_training(frames, tmp)})
     run_bench(frames)               # prints its own line
 
     sources = {name: "dsvt_ai_trt_tpu_torch/csrc/" + kernels.SPECS[name][0]

@@ -9,11 +9,15 @@ and ``./dsvt-ai-trt -d`` (deserialize and infer); here:
   python -m dsvt_ai_trt_tpu_torch.cli convert --checkpoint ckpt.pth --out dsvt.npz
   python -m dsvt_ai_trt_tpu_torch.cli stats   --data DIR    (occupancy vs the caps)
   python -m dsvt_ai_trt_tpu_torch.cli eval    --pred DIR --ref DIR
+  python -m dsvt_ai_trt_tpu_torch.cli train   --steps 20 --ckpt train_state.npz
+                                              [--resume F] [--export-wts F]
 
 Everything runs on the card (``--device cuda``, the default) unless
 ``--device cpu`` asks for the plain PyTorch versions on the CPU.  Without
 ``--weights`` (or when the file is missing) the weights are random from
-seed 0.  Training waits for the port's training slice.
+seed 0.  ``train`` takes AdamW steps on seeded planted scenes
+(``data.synthetic_batch``), checkpoints in the JAX package's train-state
+format and exports the trained weights as a ``.wts``.
 """
 
 from __future__ import annotations
@@ -189,6 +193,50 @@ def cmd_eval(args):
         raise SystemExit(1)
 
 
+def cmd_train(args):
+    """Train on synthetic planted-object scenes, as the JAX ``cli train``:
+    the same flags and closing JSON line, plus ``--device``."""
+    import numpy as np
+    from . import weights
+    from .data import synthetic_batch
+    from .ops.common import resolve_device
+    from .parallel.training import (load_train_state, make_train_step,
+                                    save_train_state)
+    cfg = _load_cfg(args)
+    device = resolve_device(args.device)
+    params = weights.from_jax_params(_load_params(args, cfg), device)
+    optimizer, train_step = make_train_step(cfg, params, device=device)
+    step0 = 0
+    if args.resume:
+        resume = args.resume
+        if not os.path.exists(resume) and os.path.exists(resume + ".npz"):
+            resume = resume + ".npz"
+        if not os.path.exists(resume):
+            raise SystemExit(f"--resume {args.resume}: checkpoint not found")
+        step0 = load_train_state(resume, params, optimizer)
+        logging.info("resumed from %s at step %d", resume, step0)
+
+    rng = np.random.default_rng(args.seed)
+    first = last = None
+    for step in range(step0, step0 + args.steps):
+        pts, ns, targets = synthetic_batch(rng, cfg, args.batch, device=device)
+        loss = float(train_step(pts, ns, targets))
+        first = loss if first is None else first
+        last = loss
+        logging.info("step %d loss %.4f", step, loss)
+        if args.ckpt and (step + 1) % args.ckpt_every == 0:
+            save_train_state(args.ckpt, params, optimizer, step + 1)
+    if args.ckpt:
+        written = save_train_state(args.ckpt, params, optimizer,
+                                   step0 + args.steps)
+        print(f"checkpoint -> {written}")
+    if args.export_wts:
+        weights.save_wts(weights.unfold_params(params, cfg), args.export_wts)
+        print(f"trained weights -> {args.export_wts}")
+    print(json.dumps({"steps": args.steps, "loss_first": first,
+                      "loss_last": last}))
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="dsvt-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -238,6 +286,17 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("stats", help="per-frame occupancy vs static caps")
     common(p, data=True)
     p.set_defaults(fn=cmd_stats)
+
+    p = sub.add_parser("train", help="train on synthetic planted scenes")
+    common(p)
+    p.add_argument("--steps", type=int, default=20)
+    p.add_argument("--batch", type=int, default=2)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--ckpt", default="train_state.npz")
+    p.add_argument("--ckpt-every", type=int, default=10)
+    p.add_argument("--resume", default=None)
+    p.add_argument("--export-wts", default=None)
+    p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("eval", help="order-insensitive box comparison of two "
                                     "output dirs")

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import BACKBONE2D_STAGES, BACKBONE2D_DEBLOCK
-from ..ops.common import compute_dtype, matmul_dtype
+from ..ops.common import compute_dtype, matmul_dtype, relu
 
 
 def to_nchw(x_hwc: torch.Tensor) -> torch.Tensor:
@@ -45,20 +45,20 @@ def conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int = 1,
 
 
 def _res_unit(x, unit, stride, precision):
-    h = torch.relu(conv(x, unit["conv1_w"], unit["conv1_b"], stride, precision))
+    h = relu(conv(x, unit["conv1_w"], unit["conv1_b"], stride, precision))
     h = conv(h, unit["conv2_w"], unit["conv2_b"], 1, precision)
     if "down_w" in unit:
         shortcut = conv(x, unit["down_w"], unit["down_b"], stride, precision)
     else:
         shortcut = x
-    return torch.relu(h + shortcut)
+    return relu(h + shortcut)
 
 
 def _upsample(x, w, b, k, precision):
     """ConvTranspose2d with kernel == stride; w is [in, out, k, k]."""
     mdt = matmul_dtype(precision)
     y = F.conv_transpose2d(x.to(mdt), w.to(mdt), b.to(mdt), stride=k)
-    return torch.relu(y).to(compute_dtype(precision))
+    return relu(y).to(compute_dtype(precision))
 
 
 def backbone2d_nchw(x: torch.Tensor, params: dict,

@@ -16,7 +16,16 @@ the labels cost a few microseconds per frame.
 ``forward_scan`` is the throughput form of the JAX package's ``lax.scan``
 batching: the frames of a batch one after another, outputs stacked.
 ``forward_batch`` (the vmap form, for data parallelism over several
-devices) waits for the multi-device slice.
+devices) waits for the multi-device slice, ROADMAP queue A14.
+
+``forward_train`` is ``forward_debug`` with autograd on, for the training
+loss (parallel/training.py): the plain paths (kernels B1-B3 define no
+backward, as in the JAX package), the full head, and the attention
+projections packed from the live weights.  Its integer stages
+(``partition_frame``: voxelize, window/set partitions) carry no gradient
+and run apart from the float stages (``float_stages``), so a recomputing
+backward (``torch.utils.checkpoint``) reruns only the float stages on the
+same partitions.
 """
 
 from __future__ import annotations
@@ -121,20 +130,45 @@ class IntermediateOutputs(NamedTuple):
     head_out: Dict[str, torch.Tensor]
 
 
-@torch.inference_mode()
-def forward_debug(params, points, num_points, cfg: DSVTConfig,
-                  device="cuda") -> IntermediateOutputs:
-    """Per-stage outputs for parity checks: the plain reference paths (no
-    kernels), full-map head, as the JAX forward_debug."""
+def partition_frame(params, points, num_points, cfg: DSVTConfig,
+                    device="cuda"):
+    """The integer stages of one frame, without autograd: (pillars, window
+    partitions, set partitions)."""
     points, num = _inputs(params, points, num_points, device)
+    with torch.no_grad():
+        pillars = voxelize(points, num, cfg)
+        wparts, sparts = _partitions(pillars, cfg)
+    return pillars, wparts, sparts
+
+
+def float_stages(params, pillars: Pillars, wparts, sparts, cfg: DSVTConfig,
+                 live_weights: bool = False) -> IntermediateOutputs:
+    """VFE to the full-map head on the plain paths, from the partitions of
+    ``partition_frame``."""
     precision = cfg.precision
-    pillars = voxelize(points, num, cfg)
     pfeats = vfe_forward(pillars, params["vfe"], cfg, use_kernels=False)
-    wparts, sparts = _partitions(pillars, cfg)
     dfeats = backbone3d_forward(pfeats, wparts, sparts, params, cfg,
-                                use_kernels=False)
+                                use_kernels=False, live_weights=live_weights)
     bev = map_to_bev(dfeats, pillars.coords, pillars.pillar_valid,
                      (cfg.grid_size[1], cfg.grid_size[0]))
     bev2 = backbone2d_forward(bev, params["backbone2d"], precision)
     head_out = head_forward(bev2, params["head"], precision)
     return IntermediateOutputs(pillars, pfeats, dfeats, bev2, head_out)
+
+
+@torch.inference_mode()
+def forward_debug(params, points, num_points, cfg: DSVTConfig,
+                  device="cuda") -> IntermediateOutputs:
+    """Per-stage outputs for parity checks: the plain reference paths (no
+    kernels), full-map head, as the JAX forward_debug."""
+    return float_stages(params, *partition_frame(params, points, num_points,
+                                                 cfg, device), cfg)
+
+
+def forward_train(params, points, num_points, cfg: DSVTConfig,
+                  device="cuda") -> IntermediateOutputs:
+    """``forward_debug`` with autograd on and the projections packed from
+    the live weights (module docstring)."""
+    return float_stages(params, *partition_frame(params, points, num_points,
+                                                 cfg, device), cfg,
+                        live_weights=True)

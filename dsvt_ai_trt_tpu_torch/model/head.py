@@ -19,6 +19,7 @@ from typing import Dict
 import torch
 
 from ..config import DSVTConfig, HEAD_BRANCHES, head_branches
+from ..ops.common import relu
 from .backbone2d import conv, to_hwc, to_nchw
 
 
@@ -30,10 +31,10 @@ def head_forward(features: torch.Tensor, params: dict,
     branches = head_branches(cfg) if cfg is not None else tuple(
         (name, params[name]["w1"].shape[0]) for name, _ in HEAD_BRANCHES)
     x = to_nchw(features)
-    shared = torch.relu(conv(x, params["shared_w"], params["shared_b"], 1,
+    shared = relu(conv(x, params["shared_w"], params["shared_b"], 1,
                              precision))
     if lazy:
-        hm_hidden = torch.relu(conv(shared, params["hm"]["w0"],
+        hm_hidden = relu(conv(shared, params["hm"]["w0"],
                                     params["hm"]["b0"], 1, precision))
         hm = conv(hm_hidden, params["hm"]["w1"], params["hm"]["b1"], 1,
                   precision)
@@ -44,7 +45,7 @@ def head_forward(features: torch.Tensor, params: dict,
     hidden_c = params[branches[0][0]]["w0"].shape[0]
     w0 = torch.cat([params[n]["w0"] for n, _ in branches], dim=0)
     b0 = torch.cat([params[n]["b0"] for n, _ in branches], dim=0)
-    hidden = torch.relu(conv(shared, w0, b0, 1, precision))
+    hidden = relu(conv(shared, w0, b0, 1, precision))
     out = {}
     for i, (name, _c) in enumerate(branches):
         h = hidden[:, i * hidden_c:(i + 1) * hidden_c]

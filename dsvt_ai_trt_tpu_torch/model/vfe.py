@@ -18,14 +18,13 @@ import torch
 
 from ..config import DSVTConfig
 from ..ops import segment as seg_ops
-from ..ops.common import dense, matmul_dtype
+from ..ops.common import dense, matmul_dtype, relu
 from ..ops.scatter import scatter_max
 from ..ops.voxelize import Pillars
 
 
 def _dense_relu(x, w, b, precision, out_dt=torch.float32):
-    y = dense(x, w, b, matmul_dtype(precision))
-    return torch.clamp(y, min=0.0).to(out_dt)
+    return relu(dense(x, w, b, matmul_dtype(precision))).to(out_dt)
 
 
 def vfe_forward(pillars: Pillars, params: dict, cfg: DSVTConfig, *,

@@ -42,6 +42,15 @@ def dense(x: torch.Tensor, w: torch.Tensor, b, dtype: torch.dtype) -> torch.Tens
     return y if b is None else y + b
 
 
+def relu(x: torch.Tensor) -> torch.Tensor:
+    """``max(x, 0)`` with the JAX package's gradient: ``jnp.maximum(y, 0)``
+    passes half the gradient where y is exactly 0, as ``torch.maximum``
+    does (``torch.relu`` passes none there, ``clamp`` all of it).  The 0 is
+    a CPU scalar: as a 0-dim tensor on the card it is a broadcast operand,
+    whose slower kernel cost 0.45 ms a bf16 frame on the H100."""
+    return torch.maximum(x, torch.zeros((), dtype=x.dtype))
+
+
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on.  CUDA is asked for explicitly and
     is never replaced by the CPU: without a card this raises."""

@@ -7,6 +7,12 @@ of that package): the same ``module.*`` name contract of the reference's
 ``[in, out, k, k]``).  ``random_params`` therefore equals the JAX one bit for
 bit, and ``from_jax_params`` carries either package's dict to torch tensors
 on a device, transposing conv weights to torch's OIHW.
+
+For training: ``trainable`` lists the leaves of that dict (the tensors an
+optimizer updates), ``refold`` remakes the derived encoder weights after an
+update, ``to_jax_params`` carries the tensors back to the NumPy dict (HWIO
+convs) and ``unfold_params`` turns them into a raw ``module.*`` checkpoint
+for ``save_wts``.
 """
 
 from __future__ import annotations
@@ -483,35 +489,215 @@ def _conv_keys(path):
 
 def from_jax_params(params: Dict, device="cuda"):
     """The nested NumPy dict of ``prepare_params``/``random_params`` (either
-    package's) -> the same nesting of float32 torch tensors on ``device``.
+    package's) -> the same nesting of float32 torch tensors on ``device``,
+    copies of the arrays (training updates them in place).
 
     HWIO conv kernels become OIHW (``F.conv2d``'s layout); linears stay
     ``[in, out]`` (``x @ w``); deconv kernels are already torch's
     ``ConvTranspose2d`` layout ``[in, out, k, k]``.  Lists stay lists.
     For a whole model, each encoder pass also gets the weights that the
     forward pass derives from it, made here once rather than per frame
-    (``model.backbone3d.fold_encoder``: packed q/k/v projections and their
-    bf16 copies, kernel B2's bf16 weights and stacked LayerNorm vectors).
+    (``refold``).
     """
-    import torch
-    from .model.backbone3d import fold_encoder  # local, as torch above
-
-    def conv(path, leaf):
-        arr = np.asarray(leaf, np.float32)
-        if _conv_keys(path):
-            arr = np.transpose(arr, (3, 2, 0, 1))
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
-
     def walk(node, path):
         if isinstance(node, dict):
             return {k: walk(v, path + (k,)) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
-            return [walk(v, path) for v in node]
-        return conv(path, node)
+            return [walk(v, path + (i,)) for i, v in enumerate(node)]
+        return to_torch_leaf(path, node, device)
 
     tree = walk(params, ())
     if "blocks" in tree:
-        for b, block in enumerate(tree["blocks"]):
-            for e, enc in enumerate(block["enc"]):
-                enc.update(fold_encoder(enc, tree["posembed"][b][e]))
+        refold(tree)
     return tree
+
+
+def refold(params: Dict) -> Dict:
+    """Remake every encoder pass's derived weights from its current leaves,
+    in place, without autograd (``model.backbone3d.fold_encoder``: packed
+    q/k/v projections and their bf16 copies, kernel B2's bf16 weights and
+    stacked LayerNorm vectors).  Run it after every change to the leaves:
+    the inference path reads only the derived copies of those weights."""
+    import torch
+    from .model.backbone3d import fold_encoder  # local: avoids import cycle
+
+    with torch.no_grad():
+        for b, block in enumerate(params["blocks"]):
+            for e, enc in enumerate(block["enc"]):
+                enc.update(fold_encoder(enc, params["posembed"][b][e]))
+    return params
+
+
+def _is_folded(path) -> bool:
+    from .model.backbone3d import FOLDED_KEYS
+    return path[0] == "blocks" and path[-1] in FOLDED_KEYS
+
+
+def keystr(path) -> str:
+    """A leaf's path as ``jax.tree_util.keystr`` writes it:
+    ``['blocks'][0]['enc'][1]['wq']``."""
+    return "".join(f"['{k}']" if isinstance(k, str) else f"[{k}]"
+                   for k in path)
+
+
+def named_leaves(params: Dict):
+    """(path, tensor) of every leaf that JAX's ``prepare_params`` dict has
+    (no derived key), in JAX's flattening order (sorted dict keys; list
+    positions are path entries)."""
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                if not _is_folded(path + (k,)):
+                    yield from walk(node[k], path + (k,))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                yield from walk(v, path + (i,))
+        else:
+            yield path, node
+    return list(walk(params, ()))
+
+
+def trainable(params: Dict) -> list:
+    """The tensors an optimizer updates: ``named_leaves`` without paths."""
+    return [t for _, t in named_leaves(params)]
+
+
+def to_torch_leaf(path, leaf, device):
+    """One leaf of the JAX dict as a float32 tensor on ``device`` (a copy),
+    convs OIHW."""
+    import torch
+    arr = np.asarray(leaf, np.float32)
+    if _conv_keys(path):
+        arr = np.transpose(arr, (3, 2, 0, 1))
+    return torch.tensor(np.ascontiguousarray(arr), device=device)
+
+
+def to_numpy_leaf(path, tensor) -> np.ndarray:
+    """One leaf as the JAX dict holds it: a float32 NumPy copy, convs
+    HWIO."""
+    arr = tensor.detach().float().cpu().numpy()
+    if _conv_keys(path):
+        arr = np.transpose(arr, (2, 3, 1, 0))
+    return np.array(arr, order="C", copy=True)
+
+
+def to_jax_params(params: Dict) -> Dict:
+    """Inverse of ``from_jax_params``: the nested NumPy dict of
+    ``prepare_params`` (HWIO convs, no derived keys)."""
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()
+                    if not _is_folded(path + (k,))}
+        if isinstance(node, (list, tuple)):
+            return [walk(v, path + (i,)) for i, v in enumerate(node)]
+        return to_numpy_leaf(path, node)
+    return walk(params, ())
+
+
+# ---------------------------------------------------------------------------
+# Unfolding: the compute-ready dict -> a raw checkpoint (the .wts export of
+# trained weights, keeping the module.* name contract)
+# ---------------------------------------------------------------------------
+
+
+def _identity_bn(c: int, eps: float, shift: np.ndarray) -> Dict[str, np.ndarray]:
+    """BN stats that make the affine exactly (scale=1, shift=shift):
+    running_var = 1 - eps so sqrt(var + eps) == 1."""
+    return {
+        "weight": np.ones(c, np.float32),
+        "bias": np.asarray(shift, np.float32),
+        "running_mean": np.zeros(c, np.float32),
+        "running_var": np.full(c, 1.0 - eps, np.float32),
+    }
+
+
+def unfold_params(params: Dict, cfg: DSVTConfig) -> Raw:
+    """Inverse of prepare_params for the port's tensors (``from_jax_params``
+    layout): a raw state-dict that reproduces the same computation.  BN
+    folds are not uniquely invertible, so folded linear/conv+BN pairs export
+    as (trained weight, identity BN with the trained bias as BN shift),
+    numerically identical under prepare_params (var + eps rounds to exactly
+    1 in float32 at both BN epsilons) and loadable by the reference's
+    loadWeights_new.  The JAX package's ``unfold_params`` of the same
+    weights gives the same arrays bit for bit."""
+    params = to_jax_params(params)
+    raw: Raw = {}
+    asnp = lambda t: np.asarray(t, np.float32)
+
+    def lin_bn(prefix_lin, prefix_bn, w, b, eps, with_bias=False):
+        raw[f"{prefix_lin}.weight"] = asnp(w).T.copy()        # [out, in]
+        if with_bias:
+            raw[f"{prefix_lin}.bias"] = np.zeros(w.shape[1], np.float32)
+        for k, v in _identity_bn(w.shape[1], eps, asnp(b)).items():
+            raw[f"{prefix_bn}.{k}"] = v
+
+    def conv_bn(prefix_conv, prefix_bn, w, b, eps):
+        raw[f"{prefix_conv}.weight"] = np.transpose(asnp(w), (3, 2, 0, 1)).copy()
+        for k, v in _identity_bn(w.shape[3], eps, asnp(b)).items():
+            raw[f"{prefix_bn}.{k}"] = v
+
+    lin_bn("module.vfe.pfn_layers.0.linear", "module.vfe.pfn_layers.0.norm",
+           params["vfe"]["l0"]["w"], params["vfe"]["l0"]["b"], cfg.bn1d_eps)
+    lin_bn("module.vfe.pfn_layers.1.linear", "module.vfe.pfn_layers.1.norm",
+           params["vfe"]["l1"]["w"], params["vfe"]["l1"]["b"], cfg.bn1d_eps)
+
+    for b_i in range(cfg.num_blocks):
+        for e in range(2):
+            mlp = params["posembed"][b_i][e]
+            pre = (f"module.backbone_3d.input_layer.posembed_layers.0."
+                   f"{b_i}.{e}.position_embedding_head")
+            lin_bn(f"{pre}.0", f"{pre}.1", mlp["w1"], mlp["b1"], cfg.bn1d_eps,
+                   with_bias=True)
+            raw[f"{pre}.3.weight"] = asnp(mlp["w2"]).T.copy()
+            raw[f"{pre}.3.bias"] = asnp(mlp["b2"])
+
+            enc = params["blocks"][b_i]["enc"][e]
+            pre = f"module.backbone_3d.stage_0.{b_i}.encoder_list.{e}"
+            attn = f"{pre}.win_attn.self_attn"
+            for part, key in (("query", "q"), ("key", "k"), ("value", "v")):
+                raw[f"{attn}.in_proj_weight.{part}"] = asnp(enc[f"w{key}"]).T.copy()
+                raw[f"{attn}.in_proj_bias.{part}"] = asnp(enc[f"b{key}"])
+            raw[f"{attn}.out_proj.weight"] = asnp(enc["wo"]).T.copy()
+            raw[f"{attn}.out_proj.bias"] = asnp(enc["bo"])
+            for ln, key in (("norm1", "ln1"), ("norm2", "ln2")):
+                raw[f"{pre}.win_attn.{ln}.weight"] = asnp(enc[f"{key}_g"])
+                raw[f"{pre}.win_attn.{ln}.bias"] = asnp(enc[f"{key}_b"])
+            raw[f"{pre}.win_attn.linear1.weight"] = asnp(enc["ffn_w1"]).T.copy()
+            raw[f"{pre}.win_attn.linear1.bias"] = asnp(enc["ffn_b1"])
+            raw[f"{pre}.win_attn.linear2.weight"] = asnp(enc["ffn_w2"]).T.copy()
+            raw[f"{pre}.win_attn.linear2.bias"] = asnp(enc["ffn_b2"])
+            raw[f"{pre}.norm.weight"] = asnp(enc["norm_g"])
+            raw[f"{pre}.norm.bias"] = asnp(enc["norm_b"])
+        raw[f"module.backbone_3d.residual_norm_stage_0.{b_i}.weight"] = asnp(
+            params["blocks"][b_i]["res_g"])
+        raw[f"module.backbone_3d.residual_norm_stage_0.{b_i}.bias"] = asnp(
+            params["blocks"][b_i]["res_b"])
+
+    for s, stage in enumerate(params["backbone2d"]["stages"]):
+        for u, unit in enumerate(stage):
+            pre = f"module.backbone_2d.blocks.{s}.{u}"
+            conv_bn(f"{pre}.conv1", f"{pre}.bn1", unit["conv1_w"],
+                    unit["conv1_b"], cfg.bn2d_eps)
+            conv_bn(f"{pre}.conv2", f"{pre}.bn2", unit["conv2_w"],
+                    unit["conv2_b"], cfg.bn2d_eps)
+            if "down_w" in unit:
+                conv_bn(f"{pre}.downsample_layer.0", f"{pre}.downsample_layer.1",
+                        unit["down_w"], unit["down_b"], cfg.bn2d_eps)
+    for s, de in enumerate(params["backbone2d"]["deblocks"]):
+        pre = f"module.backbone_2d.deblocks.{s}"
+        raw[f"{pre}.0.weight"] = asnp(de["w"]).copy()  # already [in,out,k,k]
+        for k, v in _identity_bn(de["w"].shape[1], cfg.bn2d_eps,
+                                 asnp(de["b"])).items():
+            raw[f"{pre}.1.{k}"] = v
+
+    head = params["head"]
+    conv_bn("module.dense_head.shared_conv.0", "module.dense_head.shared_conv.1",
+            head["shared_w"], head["shared_b"], cfg.bn2d_eps)
+    for name, _c in head_branches(cfg):
+        pre = f"module.dense_head.heads_list.0.{name}"
+        conv_bn(f"{pre}.0.0", f"{pre}.0.1", head[name]["w0"], head[name]["b0"],
+                cfg.bn2d_eps)
+        raw[f"{pre}.1.weight"] = np.transpose(
+            asnp(head[name]["w1"]), (3, 2, 0, 1)).copy()
+        raw[f"{pre}.1.bias"] = asnp(head[name]["b1"])
+    return raw

@@ -10,7 +10,9 @@ configuration.
   that refuses another precision;
 * ``convert`` round-trips npz and wts; ``stats`` prints occupancy against
   the caps; ``eval --gate`` passes identical outputs and fails others;
-  ``bench`` prints its JSON line, naming the device it ran on.
+  ``bench`` prints its JSON line, naming the device it ran on;
+* ``train`` takes its steps, checkpoints, resumes from the checkpoint and
+  exports a .wts that folds back to the checkpoint's weights.
 """
 
 import dataclasses
@@ -56,7 +58,8 @@ def test_help_lists_the_subcommands():
                           "--help"], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    for cmd in ("build", "infer", "bench", "convert", "stats", "eval"):
+    for cmd in ("build", "infer", "bench", "convert", "stats", "eval",
+                "train"):
         assert cmd in out.stdout
 
 
@@ -155,3 +158,29 @@ def test_tiny_config_round_trips_through_json():
     from dsvt_ai_trt_tpu_torch.config import DSVTConfig
     back = DSVTConfig.from_json(cfg.to_json())
     assert dataclasses.asdict(back) == dataclasses.asdict(cfg)
+
+
+def test_train_checkpoints_resumes_and_exports(golden_dir, tmp_path, capsys):
+    common = ["train", "--device", "cpu", "--config",
+              str(golden_dir / "tiny.json"), "--weights", "", "--batch", "1"]
+    ckpt = str(tmp_path / "state.npz")
+    cli.main([*common, "--steps", "2", "--ckpt", ckpt, "--ckpt-every", "1"])
+    first = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert first["steps"] == 2 and np.isfinite(
+        [first["loss_first"], first["loss_last"]]).all()
+    assert int(np.load(ckpt)["step"]) == 2
+    wts = str(tmp_path / "trained.wts")
+    cli.main([*common, "--steps", "1", "--resume", ckpt, "--ckpt", ckpt,
+              "--export-wts", wts])
+    out = capsys.readouterr().out
+    assert f"trained weights -> {wts}" in out
+    assert json.loads(out.strip().splitlines()[-1])["steps"] == 1
+    state = np.load(ckpt)
+    assert int(state["step"]) == 3 and int(state["o:[0].count"]) == 3
+    # the exported weights fold back to the checkpoint's
+    folded = weights.prepare_params(weights.load_wts(wts), tiny_config())
+    np.testing.assert_array_equal(
+        folded["head"]["hm"]["w1"], state["p:['head']['hm']['w1']"])
+    np.testing.assert_array_equal(
+        folded["blocks"][1]["enc"][0]["wk"],
+        state["p:['blocks'][1]['enc'][0]['wk']"])

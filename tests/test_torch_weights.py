@@ -2,9 +2,10 @@
 
 * the port's random_params equals the JAX one bit for bit;
 * from_jax_params gives torch tensors of the right shapes on the device;
-* importing the port loads neither jax nor dsvt_ai_trt_tpu (exact name or
-  a ``dsvt_ai_trt_tpu.`` submodule: ``dsvt_ai_trt_tpu_torch`` shares the
-  prefix, so a substring test would be wrong);
+* importing the port (the serving and training modules named) loads neither
+  jax nor dsvt_ai_trt_tpu (exact name or a ``dsvt_ai_trt_tpu.`` submodule:
+  ``dsvt_ai_trt_tpu_torch`` shares the prefix, so a substring test would
+  be wrong);
 * entry points default to CUDA and raise without it; kernel wrappers raise
   on CPU tensors; CPU tensors take the plain versions and count no launch.
 """
@@ -105,7 +106,8 @@ def test_port_imports_no_jax():
         "             or n.startswith('dsvt_ai_trt_tpu.'))\n"
         "ported = [n for n in sys.modules if n.startswith('dsvt_ai_trt_tpu_torch.')]\n"
         "want = ['cli', 'bench', 'runtime.compile', 'runtime.trace',\n"
-        "        'runtime.profiler', 'io.host_nms']\n"
+        "        'runtime.profiler', 'io.host_nms', 'data',\n"
+        "        'parallel.training', 'train_run']\n"
         "missing = [w for w in want if 'dsvt_ai_trt_tpu_torch.' + w not in ported]\n"
         "print(len(ported), missing, bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
