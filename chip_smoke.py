@@ -25,22 +25,38 @@ Phases (any failure exits non-zero):
      call (``wrapper_device_ms``); B3 also on a seeded stream of 1..48-row
      segments (real clouds' pillars), B2 also at 1, 132 and 264 tiles of 64
      rows;
-  6. end-to-end checks: the tiny configuration's fp32 boxes on the card
-     against ``tests/goldens/tiny_seed0.json``, and box parity of the bf16
-     kernel path against fp32, both on the card, on checkpoints calibrated
-     on each of the three frames (``check_parity`` says what is gated);
-  7. runtime: the three frames written as .bin files, ``cli build
+  6. golden: the tiny configuration's fp32 boxes on the card against
+     ``tests/goldens/tiny_seed0.json``;
+  7. parity_suite: ``parity.run_suite``, the four rows {bf16, mixed} x
+     {nuScenes, Waymo density} against fp32 on checkpoints calibrated on
+     each frame, each gated (``parity.py``); then ``eval.parity_ok`` after
+     NMS on the three frames, printed, not gated (``check_parity_suite``);
+  8. mixed: ``Engine`` at ``DEFAULT_CONFIG`` with ``precision="mixed"`` on
+     the three frames: launch counts 2/8/8/1 per frame, finite boxes, ms
+     per frame (CUDA events) and device ms per frame and stage
+     (``trace.capture``), and each kernel held against its plain version
+     and timed on the inputs mixed gave it, as in phase 5 (B3 on float32
+     rows);
+  9. native: the port's C++ host library (``io/host_nms.py``) is built
+     from ``dsvt_ai_trt_tpu_torch/native/dsvt_host.cpp`` and loads; on each
+     frame's boxes before NMS its NMS keeps the NumPy route's set (host ms
+     of both: median, min and max of ``NMS_REPS`` calls); its .bin loader
+     and .wts parser give the Python readers' buffer and values;
+     ``run_frames(..., host_nms=True)`` on an engine
+     built without NMS goes through it (the NumPy route is made to fail)
+     and gives NMS-on-the-card's boxes;
+ 10. runtime: the three frames written as .bin files, ``cli build
      --engine`` then ``cli infer --engine --pipeline-depth 2``: rows equal
      the direct ``Engine`` call's at 1e-4 and the launch counts rise 2/8/8/1
      per frame (the engine's warm-up frame included); ``--host-nms`` keeps
      the same count and rows as NMS on the card, and ``--scan-batch 2``
      equals the stream;
-  8. waymo: ``WAYMO_CONFIG`` at full width on a seeded frame densified to
+ 11. waymo: ``WAYMO_CONFIG`` at full width on a seeded frame densified to
      180 000 points (``bench.waymo_base_frame``): launch counts 2/8/8/1,
      finite boxes, occupancy under every cap; B1 and B3 held against their
      plain versions on the inputs that frame gave them, and timed with
      bounds;
-  9. training (``check_training``), outside inference mode:
+ 12. training (``check_training``), outside inference mode:
      ``DEFAULT_CONFIG`` at fp32 and full width on a fixed seeded batch of 2
      planted scenes (``data.synthetic_batch``): one step's loss and
      gradients with and without ``remat`` (the JAX per-leaf gate), 6
@@ -55,11 +71,17 @@ Phases (any failure exits non-zero):
      ``cli train`` for 1 + 1 steps with ``--resume`` and ``--export-wts``;
      ``train_run.main`` for 3 steps with 2 eval scenes (reloaded recall
      equals trained recall);
- 10. bench: ``python -m dsvt_ai_trt_tpu_torch.bench`` in this process on
+ 13. bench: ``python -m dsvt_ai_trt_tpu_torch.bench`` in this process on
      the three frames (Waymo pass on the Waymo base frame), few
-     iterations; its JSON line is printed;
- 11. print the card line, the ``kernels`` JSON line (second to last), and
+     iterations, both parity gates passed (given the suite's rows of phase
+     7, see ``run_bench``); its JSON line is printed;
+ 14. print the card line, the ``kernels`` JSON line (second to last), and
      last the result line ``{"ok": true, "device": {...}}``.
+
+The independent torch oracle (tools/torch_oracle.py) is not run here:
+this script imports nothing outside the port.  Its anchor of the fp32
+path is the card test ``python -m pytest tests/test_torch_oracle.py
+--noconftest -m slow``.
 
 The profile of phase 5 is ``runtime/trace.capture``'s: per stage host ms,
 span and busy ms on the device timeline, per kernel device ms, and the
@@ -96,8 +118,7 @@ REPLACES = {
     "encoder_epilogue": "dsvt_ai_trt_tpu/ops/encoder_pallas.py:64",
     "rotated_overlap": "dsvt_ai_trt_tpu/ops/nms_pallas.py:116",
 }
-PARITY_MIN_SCORE = 0.3 + 0.05     # tools/parity_check.py: threshold + margin
-PARITY_MIN_COVERAGE = 0.99        # its gate with exact top-k
+NMS_REPS = (200, 20)               # host NMS timings: native, NumPy route
 GOLDEN_TINY = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "tests", "goldens", "tiny_seed0.json")
 
@@ -678,68 +699,58 @@ def check_tiny_golden():
             "tiny_golden_max_abs_err": float(np.abs(got - want).max())}
 
 
-def check_parity(frames):
-    """bf16 with the kernels vs fp32, both on the card, on every smoke
-    frame, each with a checkpoint calibrated on that frame (this package's
-    calibrated_raw at fp32: the 40th-highest heatmap cell sits at 0.38).
+def check_parity_suite(frames):
+    """Phase 7 (module docstring): ``parity.run_suite`` on the card, every
+    row gated by ``parity.py``'s exact-top-k gate; returns the suite.
 
-    Gate, the JAX package's tools/parity_check.py with exact top-k (the
-    port's only top-k), on the boxes before NMS: every box of score >=
-    PARITY_MIN_SCORE on either side exists among the other side's boxes
-    (same class, BEV IoU >= 0.5) for >= PARITY_MIN_COVERAGE of them both
-    ways, with matched scores within 0.03 and centres within 0.3 m.
-
-    Printed, not gated: eval.parity_ok (a one-to-one match of every box,
-    recall and precision >= 0.95) before and after NMS.  It misses on some
-    frames here, and on seeded random weights the JAX package misses it
-    between its own bf16 and fp32 paths too (``python
-    tests/test_torch_parity.py`` prints both)."""
-    from dsvt_ai_trt_tpu_torch import weights
+    Printed after it, not gated: for each of the three frames, on the
+    checkpoint the ``bf16_nuscenes`` row calibrated on it, eval.parity_ok
+    (a one-to-one match of every box, recall and precision >= 0.95) of
+    bf16 against fp32 after NMS, for the kernel path and for the plain
+    bf16 path (``use_pallas=False``: no kernel, the PyTorch versions the
+    CPU tests hold against JAX bf16).  Both miss on some frames, so the
+    kernels do not cause the miss (ROADMAP queue C1)."""
+    from dsvt_ai_trt_tpu_torch import parity, weights
     from dsvt_ai_trt_tpu_torch.config import DEFAULT_CONFIG
-    from dsvt_ai_trt_tpu_torch.eval import coverage, match_boxes
+    from dsvt_ai_trt_tpu_torch.eval import match_boxes
     from dsvt_ai_trt_tpu_torch.runtime.infer import Engine
+    suite = parity.run_suite(device="cuda")
+    for tag, row in suite["gates"].items():
+        log({"phase": "parity_suite", "row": tag,
+             **{k: row[k] for k in ("precision_mode", "density", "worst",
+                                    "n_confident", "pass_recall",
+                                    "parity_ok", "seconds", "frames")}})
+    failed = [tag for tag, row in suite["gates"].items()
+              if not row["parity_ok"]]
+    check(not failed, f"parity suite rows failed: {failed}")
+
     cfg32 = dataclasses.replace(DEFAULT_CONFIG, precision="fp32")
     cfg16 = dataclasses.replace(DEFAULT_CONFIG, precision="bf16")
 
-    def boxes(dets):
+    def kept(params, cfg, pts, n):
+        dets = Engine(params, cfg)(pts, n)
         return dets.boxes[:int(dets.count)].cpu().numpy()
 
-    failed = []
+    def summary(m):
+        return {"boxes": [m["n_pred"], m["n_ref"]], "recall": m["recall"],
+                "precision": m["precision"]}
+
     for name, (pts, n) in frames.items():
-        raw = weights.calibrated_raw(cfg32, pts, n, seed=0, device="cuda")
+        raw = weights.calibrated_raw(cfg32, pts, n, seed=0, n_boxes=40,
+                                     device="cuda")
         params = weights.from_jax_params(weights.prepare_params(raw, cfg32),
                                          "cuda")
-        p32 = boxes(Engine(params, cfg32, with_nms=False)(pts, n))
-        p16 = boxes(Engine(params, cfg16, with_nms=False)(pts, n))
-        recall = coverage(p32[p32[:, 8] >= PARITY_MIN_SCORE], p16)
-        precision = coverage(p16[p16[:, 8] >= PARITY_MIN_SCORE], p32)
-        score_err = max(recall["max_score_err"], precision["max_score_err"])
-        center_err = max(recall["max_center_err"],
-                         precision["max_center_err"])
-        pre = match_boxes(p16, p32)
-        post = match_boxes(boxes(Engine(params, cfg16)(pts, n)),
-                           boxes(Engine(params, cfg32)(pts, n)))
-        ok = (recall["n"] >= 10 and precision["n"] >= 10
-              and recall["coverage"] >= PARITY_MIN_COVERAGE
-              and precision["coverage"] >= PARITY_MIN_COVERAGE
-              and score_err <= 0.03 and center_err <= 0.3)
-        log({"phase": "parity", "frame": name, "ok": ok,
-             "confident_fp32": recall["n"], "confident_bf16": precision["n"],
-             "recall": recall["coverage"], "precision": precision["coverage"],
-             "max_score_err": score_err, "max_center_err": center_err,
-             "parity_ok_before_nms": {
-                 "boxes": [pre["n_pred"], pre["n_ref"]],
-                 "recall": pre["recall"], "precision": pre["precision"]},
-             "parity_ok_after_nms": {
-                 "boxes": [post["n_pred"], post["n_ref"]],
-                 "recall": post["recall"], "precision": post["precision"]}})
-        if not ok:
-            failed.append(name)
-    check(not failed, f"bf16 vs fp32 parity failed on {failed}")
+        ref = kept(params, cfg32, pts, n)
+        log({"phase": "parity_after_nms", "frame": name,
+             "kernels": summary(match_boxes(kept(params, cfg16, pts, n), ref)),
+             "plain_bf16": summary(match_boxes(kept(
+                 params, dataclasses.replace(cfg16, use_pallas=False),
+                 pts, n), ref))})
+    return suite
 
 
 def check_runtime(engine, frames, tmp):
-    """Phase 7: the CLI path on the three frames (module docstring)."""
+    """Phase 10: the CLI path on the three frames (module docstring)."""
     from dsvt_ai_trt_tpu_torch import cli, kernels
     from dsvt_ai_trt_tpu_torch.io.output import load_txt
     data = os.path.join(tmp, "frames")
@@ -792,7 +803,7 @@ def check_runtime(engine, frames, tmp):
 
 
 def check_waymo(tmp):
-    """Phase 8: WAYMO_CONFIG at full width on the densified seeded frame
+    """Phase 11: WAYMO_CONFIG at full width on the densified seeded frame
     (module docstring); ``cli stats`` prints the frame's occupancy."""
     import torch
     from dsvt_ai_trt_tpu_torch import bench, cli, kernels, weights
@@ -857,7 +868,7 @@ def grad_gate(name, got, ref):
 
 
 def check_training(frames, tmp):
-    """Phase 9 (module docstring): training at DEFAULT_CONFIG fp32, full
+    """Phase 12 (module docstring): training at DEFAULT_CONFIG fp32, full
     width, batch 2."""
     import contextlib
     import io
@@ -1014,15 +1025,156 @@ def check_training(frames, tmp):
     return out
 
 
-def run_bench(frames):
-    """Phase 10: the package bench in this process on its default frames
+def check_mixed(frames):
+    """Phase 8 (module docstring): DEFAULT_CONFIG at precision="mixed"."""
+    from dsvt_ai_trt_tpu_torch import weights
+    from dsvt_ai_trt_tpu_torch.config import DEFAULT_CONFIG
+    from dsvt_ai_trt_tpu_torch.runtime.infer import Engine
+    from dsvt_ai_trt_tpu_torch.runtime.trace import capture
+    cfg = dataclasses.replace(DEFAULT_CONFIG, precision="mixed")
+    engine = Engine(weights.random_params(cfg, 0), cfg)
+    records, counts, recorder = run_main_path(engine, frames)
+    want = {k: v * len(frames) for k, v in PER_FRAME.items()}
+    check(counts == want, f"mixed launch counts {counts} != {want}")
+    for rec in records.values():
+        check(rec["finite"] and rec["shape"] == [cfg.top_k, 9],
+              f"mixed: bad boxes on {rec['frame']}: {rec}")
+    for name, (pts, n) in frames.items():
+        prof = capture(engine, (pts, n), iters=4)
+        records[name].update({
+            "device_ms": prof.device_ms_per_iter,
+            "device_idle_share": prof.idle_share,
+            "host_ms_traced": prof.host_ms_per_iter,
+            "stages_device_ms": prof.stage_ms()})
+    # the kernel phase's checks and timings on the inputs mixed gave them
+    held = {
+        "segment_max": check_segment_max(recorder, list(frames), ragged=False),
+        "set_attention": check_set_attention(recorder,
+                                             ["dense_seed0", "sparse_seed1"]),
+        "encoder_epilogue": check_encoder_epilogue(recorder, "dense_seed0"),
+        "rotated_overlap": check_rotated_overlap(recorder, list(frames))}
+    dtypes = {name: sorted({str(args[0].dtype)
+                            for _f, args, _kw in recorder.calls[name]})
+              for name in PER_FRAME}
+    return {"launches": counts, "frames": records, "kernels": {
+        name: {"dtypes": dtypes[name], **{k: res[k] for k in (
+            "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "max_abs_err") if k in res}}
+        for name, res in held.items()}}
+
+
+def check_native(frames, tmp):
+    """Phase 9 (module docstring): the port's native host library."""
+    from dsvt_ai_trt_tpu_torch import weights
+    from dsvt_ai_trt_tpu_torch.config import DEFAULT_CONFIG
+    from dsvt_ai_trt_tpu_torch.io import host_nms, pointcloud
+    from dsvt_ai_trt_tpu_torch.runtime.infer import Engine, run_frames
+    so = host_nms.library_path()
+    built = not os.path.exists(so)
+    t0 = time.perf_counter()
+    lib = host_nms._load_native()
+    out = {"library": so, "built_now": built,
+           "load_seconds": time.perf_counter() - t0}
+    check(lib is not None, "native: the host library did not load")
+    cfg = dataclasses.replace(DEFAULT_CONFIG, precision="bf16")
+    params = weights.random_params(cfg, 0)
+    pre = Engine(params, cfg, with_nms=False).warmup()
+    full = Engine(params, cfg).warmup()
+    data = os.path.join(tmp, "native_frames")
+    os.makedirs(data)
+    paths, out["frames"] = [], {}
+    thr = cfg.nms_threshold
+    for i, (name, (pts, n)) in enumerate(frames.items()):
+        dets = pre(pts, n)
+        boxes, count = dets.boxes.cpu().numpy(), int(dets.count)
+        ms, kept = {}, {}
+        for route, fn, reps in zip(("native", "numpy"), (
+                host_nms.nms_host, host_nms._nms_numpy), NMS_REPS):
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                kept[route] = fn(boxes, count, thr)
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms[route] = {"median": float(np.median(times)),
+                         "min": min(times), "max": max(times), "reps": reps}
+        (a, ka), (b, kb) = kept["native"], kept["numpy"]
+        check(ka == kb and np.array_equal(a, b),
+              f"native NMS keeps {ka} boxes on {name}, NumPy {kb}")
+        path = os.path.join(data, f"{i:06d}.bin")
+        pts[: int(n)].tofile(path)
+        paths.append(path)
+        buf_c, n_c = host_nms.load_bin_native(path, cfg.max_points)
+        buf_p, n_p = pointcloud.load_bin(path, cfg.max_points)
+        check(int(n_c) == int(n_p) == int(n)
+              and np.array_equal(buf_c, buf_p), f"native .bin loader on {name}")
+        out["frames"][name] = {"boxes_in": count, "kept": ka,
+                               "host_ms_native": ms["native"],
+                               "host_ms_numpy": ms["numpy"]}
+
+    # the .wts parser on a slice of the checkpoint (the VFE and block 0)
+    raw = {k: v for k, v in weights.random_raw(cfg, 0).items()
+           if (".vfe." in k or ".stage_0.0." in k) and ".in_proj_" not in k}
+    wts = os.path.join(tmp, "slice.wts")
+    weights.save_wts(raw, wts)
+    blob, index = os.path.join(tmp, "slice.bin"), os.path.join(tmp, "slice.idx")
+    check(host_nms.wts_to_blob_native(wts, blob, index) == len(raw),
+          "native .wts parser: wrong tensor count")
+    values = np.fromfile(blob, np.float32)
+    reread = weights.load_wts(wts)
+    with open(index) as f:
+        for line in f:
+            key, off, size = line.split()
+            got = values[int(off): int(off) + int(size)]
+            check(np.array_equal(got, reread[key].ravel())
+                  and np.array_equal(got, raw[key].ravel()),
+                  f"native .wts parser differs on {key}")
+    out["wts_tensors"] = len(raw)
+
+    # run_frames' host NMS goes through the library: the NumPy route fails
+    numpy_route = host_nms._nms_numpy
+
+    def refuse(*_a, **_k):
+        raise SmokeFailure("run_frames(host_nms=True) took the NumPy route")
+    host_nms._nms_numpy = refuse
+    try:
+        results = run_frames(pre, paths, None, host_nms=True)
+    finally:
+        host_nms._nms_numpy = numpy_route
+    for res, (name, (pts, n)) in zip(results, frames.items()):
+        dets = full(pts, n)
+        ref = dets.boxes[: int(dets.count)].cpu().numpy()
+        check(res["count"] == len(ref), f"native run_frames {name}: "
+              f"{res['count']} boxes vs {len(ref)} with NMS on the card")
+        np.testing.assert_allclose(res["boxes"], ref, atol=1e-4, rtol=1e-4)
+    return out
+
+
+def run_bench(frames, suite):
+    """Phase 13: the package bench in this process on its default frames
     (the three frames, and the Waymo base frame for its Waymo pass); few
-    iterations."""
-    from dsvt_ai_trt_tpu_torch import bench
-    res = bench.main(["--iters", "2", "--trace-iters", "4"])
+    iterations.  Its parity gates call ``parity.run_parity`` with the
+    arguments of two of the suite's rows, so they are given those rows of
+    this run instead of computing them again.  A parity gate that ran and
+    failed exits the bench, and this script, with 1; one that could not
+    run (a row the suite did not compute) fails the check below."""
+    from dsvt_ai_trt_tpu_torch import bench, parity
+    rows = {(row["precision_mode"], row["density"]): row
+            for row in suite["gates"].values()}
+    run_parity = parity.run_parity
+
+    def suite_row(fast, density, **kwargs):
+        check(set(kwargs) <= {"device"}, f"bench parity gate: {kwargs}")
+        return rows[(fast, density)]
+    parity.run_parity = suite_row
+    try:
+        res = bench.main(["--iters", "2", "--trace-iters", "4"])
+    finally:
+        parity.run_parity = run_parity
     for key in ("device_ms_per_frame", "stages_device_ms", "flops_g", "mfu",
                 "waymo_ms", "waymo_device_ms"):
         check(res.get(key) is not None, f"bench: {key} is null")
+    check(res["ok"], f"bench parity gates: {res['parity']}, "
+          f"{res['parity_waymo']}")
     check(list(res)[-3:] == ["metric", "value", "unit"],
           "bench: the headline keys are not last")
     check(res["frames"] == len(frames), "bench: wrong frame count")
@@ -1086,14 +1238,16 @@ def _main(torch) -> int:
              "bound_share": res["bound_ms"] / res["device_ms"], **res})
 
     log({"phase": "golden", **check_tiny_golden()})
-    check_parity(frames)
+    suite = check_parity_suite(frames)
+    log({"phase": "mixed", **check_mixed(frames)})
 
     with tempfile.TemporaryDirectory() as tmp:
+        log({"phase": "native", **check_native(frames, tmp)})
         log({"phase": "runtime", **check_runtime(engine, frames, tmp)})
         log({"phase": "waymo", **check_waymo(tmp)})
         with torch.inference_mode(False):
             log({"phase": "training", **check_training(frames, tmp)})
-    run_bench(frames)               # prints its own line
+    run_bench(frames, suite)        # prints its own line
 
     sources = {name: "dsvt_ai_trt_tpu_torch/csrc/" + kernels.SPECS[name][0]
                for name in PER_FRAME}

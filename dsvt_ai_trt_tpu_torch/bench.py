@@ -32,14 +32,19 @@ it, three seeded synthetic frames: ``synthetic_frames``) at
     the frames of ``--data`` (else the seeded ``waymo_base_frame``)
     densified to 180 000 points by jittered
     replication, stream ms, device ms and stage table, and each frame's
-    occupancy against the caps.
+    occupancy against the caps;
+  * parity gates (the JAX bench's block): ``parity`` and ``parity_waymo``,
+    each a row of ``parity.run_parity`` (the bench's precision, bf16 for an
+    fp32 bench, against fp32 on the calibrated checkpoint, three frames at
+    nuScenes density, the densified frame at Waymo density); its worst
+    numbers and ``ok``.  A gate that cannot run records ``{"skipped":
+    reason, "ok": false}``; the top-level ``ok`` holds when both gates ran
+    and passed, and a gate that ran and failed makes the exit code 1.
 
 ``device`` is the card's name and power limit as ``nvidia-smi`` reads
 them.  Without a card the bench exits non-zero: it measures nothing on the
 CPU.  There is no ``vs_baseline`` (the reference's 0.7 s per frame was
-taken on another card) and no parity gate yet (the JAX bench's goes
-through its JAX parity tool).  A trace that cannot be captured fails the
-run.
+taken on another card).  A trace that cannot be captured fails the run.
 """
 
 from __future__ import annotations
@@ -47,9 +52,9 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import logging
 import os
 import subprocess
-import sys
 import time
 from typing import List, Tuple
 
@@ -93,10 +98,19 @@ def entry_frame(cfg, n: int, seed: int, half_extent: float = 60.0):
 def synthetic_frames(cfg):
     """The seeded frames used without ``--data``: 20 000 points in +-60 m
     (they fill ``DEFAULT_CONFIG``'s 10 000 pillars), a sparse 4 000-point
-    frame in +-20 m (fewer live sets), and a second 20 000-point seed."""
-    return {"dense_seed0": entry_frame(cfg, 20000, 0),
-            "sparse_seed1": entry_frame(cfg, 4000, 1, half_extent=20.0),
-            "dense_seed2": entry_frame(cfg, 20000, 2)}
+    frame in +-20 m (fewer live sets), and a second 20 000-point seed.  A
+    smaller configuration (the tests') gets them shrunk to it: at most
+    ``cfg.max_points`` points, the extents scaled by its x range against
+    74.88 m (a factor of exactly 1 at ``DEFAULT_CONFIG`` and
+    ``WAYMO_CONFIG``)."""
+    scale = cfg.pc_range_max[0] / 74.88
+
+    def frame(n, seed, half_extent):
+        return entry_frame(cfg, min(n, cfg.max_points), seed,
+                           half_extent=half_extent * scale)
+    return {"dense_seed0": frame(20000, 0, 60.0),
+            "sparse_seed1": frame(4000, 1, 20.0),
+            "dense_seed2": frame(20000, 2, 60.0)}
 
 
 def waymo_base_frame(seed: int = 0, n_in: int = 1600,
@@ -125,6 +139,35 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def parity_gates(precision: str, device="cuda") -> dict:
+    """The bench's parity block (module docstring): {"parity": gate,
+    "parity_waymo": gate, "ok": both ran and passed}."""
+    from . import parity
+
+    fast = precision if precision != "fp32" else "bf16"
+
+    def gate(density):
+        try:
+            row = parity.run_parity(fast, density, device=device)
+        except Exception as exc:   # recorded: a gate that cannot run
+            logging.getLogger("dsvt_torch.bench").warning(
+                "parity gate (%s) could not run: %s", density, exc)
+            return {"skipped": f"{type(exc).__name__}: {exc}", "ok": False}
+        return {"mode": fast, "approx_topk": False, **row["worst"],
+                "n_confident": row["n_confident"],
+                "pass_recall": row["pass_recall"], "ok": row["parity_ok"],
+                "seconds": row["seconds"]}
+
+    gates = {"parity": gate("nuscenes"), "parity_waymo": gate("waymo")}
+    return {**gates, "ok": all(g["ok"] for g in gates.values())}
+
+
+def gate_failed(result: dict) -> bool:
+    """Whether a parity gate of a bench result ran and failed."""
+    return any("skipped" not in result[k] and not result[k]["ok"]
+               for k in ("parity", "parity_waymo"))
 
 
 def _on_card(frames) -> List[Tuple[torch.Tensor, np.int32]]:
@@ -227,6 +270,8 @@ def run(args) -> dict:
     wprof = capture(wengine, wframes[0], iters=max(args.trace_iters // 2, 2),
                     device=wengine.device)
 
+    gates = parity_gates(cfg.precision, engine.device)
+
     def mfu(ms):
         return total / (ms / 1e3) / peak if peak else None
 
@@ -262,6 +307,7 @@ def run(args) -> dict:
         "waymo_device_idle_share": wprof.idle_share,
         "waymo_trace_frames_busy_ms": wprof.window_busy_ms(),
         "waymo_stages": wprof.stage_table(peak),
+        **gates,
         "device": device,
         "metric": "ms/frame end-to-end",
         "value": stream,
@@ -286,10 +332,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> dict:
+    """Run the bench and print its line; exit 1 (after printing) when a
+    parity gate ran and failed."""
     result = run(build_parser().parse_args(argv))
     print(json.dumps(result), flush=True)
+    if gate_failed(result):
+        raise SystemExit(1)
     return result
 
 
 if __name__ == "__main__":
-    sys.exit(0 if main() else 1)
+    main()

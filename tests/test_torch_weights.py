@@ -107,7 +107,7 @@ def test_port_imports_no_jax():
         "ported = [n for n in sys.modules if n.startswith('dsvt_ai_trt_tpu_torch.')]\n"
         "want = ['cli', 'bench', 'runtime.compile', 'runtime.trace',\n"
         "        'runtime.profiler', 'io.host_nms', 'data',\n"
-        "        'parallel.training', 'train_run']\n"
+        "        'parallel.training', 'train_run', 'parity', 'heading_probe']\n"
         "missing = [w for w in want if 'dsvt_ai_trt_tpu_torch.' + w not in ported]\n"
         "print(len(ported), missing, bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
