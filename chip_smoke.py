@@ -71,12 +71,39 @@ Phases (any failure exits non-zero):
      ``cli train`` for 1 + 1 steps with ``--resume`` and ``--export-wts``;
      ``train_run.main`` for 3 steps with 2 eval scenes (reloaded recall
      equals trained recall);
- 13. bench: ``python -m dsvt_ai_trt_tpu_torch.bench`` in this process on
+ 13. multi (``check_multi``): the card's compute mode is printed, and an
+     exclusive mode fails the phase; ``parallel/dryrun.py:card_modes`` runs
+     in two spawned processes joined in a gloo group on cuda:0 (gloo
+     carries the collectives through host copies; NCCL refuses two ranks
+     on one card), at ``DEFAULT_CONFIG`` full caps with the main path's
+     seeded weights, and is held here against this process's runs: dp=2
+     (the two dense frames, one a rank, through ``make_dp_engine``) equal
+     to the ``Engine`` at 1e-4 (max |d| printed); mp=2 at bf16 (the three
+     frames; B1 at 4 heads, B2 whole on the gathered heads) and sp=2 at
+     bf16 (B1 on a rank's 400 sets, B2 on its 5 000 pillar rows) pass
+     ``parity.py``'s gate against the unsharded bf16 boxes before NMS;
+     sp=2 at fp32 equals the unsharded fp32 boxes at 1e-4, with the 117-row
+     level split 58 / 59; each rank's launches over its pass are 2/8/8/1 a
+     frame (sp fp32: B3 and B4 only); each rank (``multi_rank``) records
+     the inputs of B1 and B2's first call in each mode, and once the ranks
+     have exited they are held against the plain versions and timed here,
+     as phase 5 holds the main path's (``check_set_attention``,
+     ``check_encoder_epilogue``); an mp=2 training step (fp32, batch 2)
+     gives the single-process loss at 1e-4 and its leaves (``step_gate``),
+     beside two more single-process steps: a repeat (the gradients'
+     run-to-run spread) and one with every encoder leaf moved one ulp at
+     random (``nudge_``: how far a change of the size another summation
+     order makes moves the gradients).  Per mode and rank: the CUDA-event
+     span, device busy ms and idle share (a trace of the pass), host ms,
+     calls and MB in collectives: two processes sharing one card, not a
+     multi-GPU speed;
+ 14. bench: ``python -m dsvt_ai_trt_tpu_torch.bench`` in this process on
      the three frames (Waymo pass on the Waymo base frame), few
      iterations, both parity gates passed (given the suite's rows of phase
      7, see ``run_bench``); its JSON line is printed;
- 14. print the card line, the ``kernels`` JSON line (second to last), and
-     last the result line ``{"ok": true, "device": {...}}``.
+ 15. print the card line, the ``kernels`` JSON line (second to last), and
+     last the result line ``{"ok": true, "device": {...}}``.  Phases 6-14
+     print their seconds.
 
 The independent torch oracle (tools/torch_oracle.py) is not run here:
 this script imports nothing outside the port.  Its anchor of the fp32
@@ -98,6 +125,7 @@ import os
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -265,22 +293,24 @@ def bound_ms(nbytes, ops, peak):
 
 
 class Recorder:
-    """Wraps the kernel wrappers the main path calls, keeping the inputs of
-    each call so the kernels can be held against their plain versions on
-    exactly those tensors.  The wrapped call is the original wrapper (which
-    counts its own launch)."""
+    """Wraps the kernel wrappers the main path calls (or those of
+    ``names``), keeping the inputs of each call (with ``first_only``, of
+    the first call a frame) so the kernels can be held against their plain
+    versions on exactly those tensors.  The wrapped call is the original
+    wrapper (which counts its own launch)."""
 
-    def __init__(self):
+    def __init__(self, names=tuple(PER_FRAME), first_only=False):
         from dsvt_ai_trt_tpu_torch.ops import (attention_kernel, encoder_kernel,
                                                nms, segment)
-        self.calls = {name: [] for name in PER_FRAME}
+        self.calls = {name: [] for name in names}
         self.frame = None
-        self._patches = [
+        self.first_only = first_only
+        self._patches = [p for p in (
             (segment, "segmented_max", "segment_max"),
             (attention_kernel, "set_attention_fused_flat", "set_attention"),
             (encoder_kernel, "encoder_epilogue", "encoder_epilogue"),
             (nms, "pairwise_overlap", "rotated_overlap"),
-        ]
+        ) if p[2] in names]
         self._orig = []
 
     def __enter__(self):
@@ -289,7 +319,10 @@ class Recorder:
             self._orig.append((mod, attr, orig))
 
             def wrapped(*args, _orig=orig, _name=name, **kw):
-                self.calls[_name].append((self.frame, args, kw))
+                calls = self.calls[_name]
+                if not (self.first_only
+                        and any(fr == self.frame for fr, _a, _k in calls)):
+                    calls.append((self.frame, args, kw))
                 return _orig(*args, **kw)
             setattr(mod, attr, wrapped)
         return self
@@ -1025,6 +1058,234 @@ def check_training(frames, tmp):
     return out
 
 
+def compute_mode():
+    """The card's compute mode as nvidia-smi reads it; an exclusive mode
+    lets one process at a time hold the card, so the multi phase's two
+    processes cannot share it, and that fails the phase."""
+    import subprocess
+    out = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    mode = out.stdout.strip().splitlines()[0]
+    check("exclusive" not in mode.lower(), f"multi: the card is in compute "
+          f"mode {mode}; two processes cannot share it")
+    return mode
+
+
+def step_gate(key, new, ref_new, grad, ref_grad, lr=1e-4):
+    """One AdamW step, sharded against single-process.  The gradient
+    under the JAX package's per-leaf gate (``grad_gate``): at full width a
+    one-ulp change of the encoder weights alone moves the gradients about
+    as far as the sharded summation order does (``nudge_``, reported
+    beside it), beyond 1e-4 of their largest on most leaves.  The updated
+    leaf within 1e-4 of its largest wherever the gradient exceeds its own
+    difference by 1e-6 (100 AdamW eps); elsewhere the first step's lr * g /
+    (|g| + eps), about lr * sign(g), may flip: held at 2 lr + 1e-6.
+    Returns (the gradient's max |d| over its largest, the updated leaf's
+    max |d| over its largest)."""
+    gdiff = np.abs(grad - ref_grad)
+    gmax = float(np.abs(ref_grad).max())
+    check(float(gdiff.max()) <= max(5e-3 * gmax, 5e-4),
+          f"multi: mp=2 gradient of {key} differs by {float(gdiff.max()):.3e}"
+          f" (largest {gmax:.3e})")
+    d = np.abs(new - ref_new)
+    scale = float(np.abs(ref_new).max())
+    big = np.abs(ref_grad) > gdiff + 1e-6
+    check(float(d[big].max(initial=0)) <= 1e-4 * scale
+          and float(d.max(initial=0)) <= 2 * lr + 1e-6,
+          f"multi: mp=2 step of {key} differs by {float(d.max()):.3e}")
+    return (float(gdiff.max()) / max(gmax, 1e-30),
+            float(d[big].max(initial=0)) / max(scale, 1e-30))
+
+
+def multi_rank(rank, world, device, frames, batch):
+    """One spawned rank of the multi phase: ``dryrun.card_modes`` with B1
+    and B2's first call of each mode recorded.  Returns its results and
+    the recorded calls (CUDA tensors; ``torch.save`` carries them to the
+    parent, which holds and times them once the ranks have exited)."""
+    from dsvt_ai_trt_tpu_torch.parallel import dryrun
+    recorder = Recorder(("set_attention", "encoder_epilogue"),
+                        first_only=True)
+    with recorder:
+        res = dryrun.card_modes(rank, world, device, frames, batch,
+                                lambda mode: setattr(recorder, "frame",
+                                                     mode))
+    return res, recorder.calls
+
+
+def nudge_(params, seed=1):
+    """Every encoder leaf (``blocks``) of torch params moved one ulp up or
+    down at random, in place, and the derived weights refolded."""
+    import torch
+    from dsvt_ai_trt_tpu_torch import weights
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for path, t in weights.named_leaves(params):
+            if path[0] == "blocks":
+                up = torch.rand(t.shape, generator=gen, device=t.device) < 0.5
+                t.copy_(torch.nextafter(t, torch.where(
+                    up, torch.inf, -torch.inf).to(t.dtype)))
+    weights.refold(params)
+
+
+def check_multi(engine, frames):
+    """The multi phase (module docstring): parallel/dryrun.py's
+    ``card_modes`` in two gloo processes sharing cuda:0, held here against
+    this process's single-process runs."""
+    import torch
+    from dsvt_ai_trt_tpu_torch import parity, weights
+    from dsvt_ai_trt_tpu_torch.config import DEFAULT_CONFIG
+    from dsvt_ai_trt_tpu_torch.data import synthetic_batch
+    from dsvt_ai_trt_tpu_torch.model.detector import forward
+    from dsvt_ai_trt_tpu_torch.parallel import dryrun
+    from dsvt_ai_trt_tpu_torch.parallel.training import make_train_step
+    log({"phase": "multi", "compute_mode": compute_mode()})
+    cfg32 = DEFAULT_CONFIG
+    cfg16 = dataclasses.replace(DEFAULT_CONFIG, precision="bf16")
+    with torch.inference_mode(False):       # the reference step's batch
+        batch = synthetic_batch(np.random.default_rng(0), cfg32, 2)
+    batch_np = (batch[0].cpu().numpy(), batch[1].cpu().numpy(),
+                [t.cpu().numpy() for t in batch[2]])
+    t0 = time.perf_counter()
+    spawned = dryrun.spawn(multi_rank, 2, "cuda", (frames, batch_np))
+    seconds = time.perf_counter() - t0
+    ranks = [res for res, _calls in spawned]
+    names = list(frames)
+    out = {"world": 2, "transport": "gloo, host copies", "seconds": seconds,
+           "note": "two processes sharing one card, not a multi-GPU speed"}
+
+    def want(frames_per_rank, kernels_on=tuple(PER_FRAME)):
+        return {k: (v * frames_per_rank if k in kernels_on else 0)
+                for k, v in PER_FRAME.items()}
+
+    # per rank: 2/8/8/1 a frame; sp at fp32 takes B3 and B4 only (B1 and
+    # B2 are the bf16/mixed path's); the train step launches none
+    expect = {"dp": want(1), "mp_bf16": want(3),
+              "sp_fp32": want(1, ("segment_max", "rotated_overlap")),
+              "sp_bf16": want(3), "mp_train": want(0)}
+    for mode, counts in expect.items():
+        for r, res in enumerate(ranks):
+            check(res[mode]["launches"] == counts, f"multi {mode}: rank {r} "
+                  f"launched {res[mode]['launches']}, expected {counts}")
+        rows = {k: [res[mode].get(k) for res in ranks] for k in (
+            "seconds", "span_ms_per_frame", "device_busy_ms_per_frame",
+            "device_idle_share",
+            "collective_host_ms_per_frame", "collective_calls_per_frame",
+            "collective_mbytes_per_frame")}
+        out[mode] = {"launches_per_rank": counts, **rows}
+
+    t0 = time.perf_counter()
+    # dp=2: each rank's frame equals the single-process Engine's
+    got = ranks[0]["dp"]
+    worst = 0.0
+    for i, name in enumerate(("dense_seed0", "dense_seed2")):
+        ref = engine(*frames[name])
+        n = int(ref.count)
+        check(int(got["count"][i]) == n, f"multi dp: {int(got['count'][i])} "
+              f"boxes on {name}, the Engine {n}")
+        a, b = got["boxes"][i][:n], ref.boxes[:n].cpu().numpy()
+        np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4)
+        worst = max(worst, float(np.abs(a - b).max()) if n else 0.0)
+    out["dp"]["max_abs_err_vs_engine"] = worst
+
+    # mp=2 and sp=2 at bf16: parity.py's gate against the unsharded bf16
+    # boxes before NMS; sp=2 at fp32: equal to the unsharded fp32 at 1e-4
+    params = engine.params
+    min_score = cfg16.score_threshold + parity.SCORE_MARGIN
+    for mode in ("mp_bf16", "sp_bf16"):
+        stats = []
+        for i, name in enumerate(names):
+            ref = forward(params, *frames[name], cfg16, False, "cuda")
+            ref = ref.boxes[:int(ref.count)].cpu().numpy()
+            sh = ranks[0][mode]["before_nms"][i]
+            stats.append({"frame": name, **parity.compare(
+                ref, sh["boxes"][:int(sh["count"])], min_score)})
+        g = parity.gate(stats)
+        check(g["parity_ok"], f"multi {mode}: parity gate failed: {g}")
+        out[mode]["parity"] = g
+    p32 = weights.from_jax_params(weights.random_params(cfg32, 0), "cuda")
+    ref = forward(p32, *frames[names[0]], cfg32, True, "cuda")
+    n = int(ref.count)
+    sh = ranks[0]["sp_fp32"]["with_nms"][0]
+    check(int(sh["count"]) == n, f"multi sp_fp32: {int(sh['count'])} boxes, "
+          f"unsharded {n}")
+    a, b = sh["boxes"][:n], ref.boxes[:n].cpu().numpy()
+    np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4)
+    out["sp_fp32"]["max_abs_err_vs_unsharded"] = float(np.abs(a - b).max())
+    out["sp_fp32"]["coarse_rows_per_rank"] = [
+        res["sp_fp32"]["coarse_rows"] for res in ranks]
+    check([tuple(r) for r in out["sp_fp32"]["coarse_rows_per_rank"]]
+          == [(0, 58), (58, 117)], "multi: the 117-row level must split "
+          "58 / 59")
+    del p32
+
+    # B1 and B2 at the sharded shapes: each rank's recorded inputs, held
+    # and timed here as the main path's are
+    kernel_rows = []
+    for mode in ("mp_bf16", "sp_bf16"):
+        for r, (_res, calls) in enumerate(spawned):
+            rec = types.SimpleNamespace(calls=calls)
+            for name, row in (
+                    ("set_attention", check_set_attention(rec, [mode])),
+                    ("encoder_epilogue", check_encoder_epilogue(rec, mode))):
+                kernel_rows.append({"mode": mode, "rank": r, "name": name,
+                                    **row, "bound_share":
+                                    row["bound_ms"] / row["device_ms"]})
+    out["kernels"] = kernel_rows
+    del spawned
+
+    # mp=2 train step against the single-process step, beside two more
+    # single-process steps: a repeat (the gradients' run-to-run spread:
+    # cuDNN's float32 weight gradients sum with atomics) and one with every
+    # encoder leaf moved one ulp at random (``nudge_``: the step's own
+    # sensitivity to a change of the size another summation order makes)
+    mt = ranks[0]["mp_train"]
+    steps = []
+    with torch.inference_mode(False):
+        for nudged in (False, False, True):
+            ref_p = weights.from_jax_params(weights.random_params(cfg32, 0),
+                                            "cuda")
+            if nudged:
+                nudge_(ref_p)
+            _, step = make_train_step(cfg32, ref_p)
+            steps.append((float(step(*batch)), {
+                weights.keystr(p): (t.detach().cpu().numpy(),
+                                    t.grad.cpu().numpy())
+                for p, t in weights.named_leaves(ref_p)}))
+            del ref_p, step
+    loss = steps[0][0]
+    ref_leaves = {k: v[0] for k, v in steps[0][1].items()}
+    ref_grads = {k: v[1] for k, v in steps[0][1].items()}
+    again, nudged = ([float(np.abs(steps[i][1][k][1] - g).max())
+                      / max(float(np.abs(g).max()), 1e-30)
+                      for k, g in ref_grads.items()] for i in (1, 2))
+    check(abs(mt["loss"] - loss) <= 1e-4 * abs(loss),
+          f"multi mp_train: loss {mt['loss']} vs single-process {loss}")
+    check(ranks[1]["mp_train"]["loss"] == mt["loss"],
+          "multi mp_train: the ranks' losses differ")
+    errs = [step_gate(k, mt["leaves"][k], ref_leaves[k], mt["grads"][k],
+                      ref_grads[k]) for k in ref_leaves]
+    out["mp_train"].update({
+        "loss": mt["loss"], "single_process_loss": loss,
+        "loss_rel_err": abs(mt["loss"] - loss) / abs(loss),
+        "grad_rel_err": max(e[0] for e in errs),
+        "grad_rel_err_median": float(np.median([e[0] for e in errs])),
+        "grad_leaves_over_1e-4": sum(e[0] > 1e-4 for e in errs),
+        "repeat_grad_rel_err": max(again),
+        "repeat_grad_rel_err_median": float(np.median(again)),
+        "repeat_grad_leaves_over_1e-4": sum(e > 1e-4 for e in again),
+        "nudged_grad_rel_err": max(nudged),
+        "nudged_grad_rel_err_median": float(np.median(nudged)),
+        "nudged_grad_leaves_over_1e-4": sum(e > 1e-4 for e in nudged),
+        "nudged_loss": steps[2][0],
+        "leaves": len(errs),
+        "repeat_loss": steps[1][0],
+        "leaf_rel_err": max(e[1] for e in errs),
+        "step_seconds": [res["mp_train"]["step_seconds"] for res in ranks]})
+    out["check_seconds"] = time.perf_counter() - t0
+    return out
+
+
 def check_mixed(frames):
     """Phase 8 (module docstring): DEFAULT_CONFIG at precision="mixed"."""
     from dsvt_ai_trt_tpu_torch import weights
@@ -1195,7 +1456,7 @@ def _main(torch) -> int:
     from dsvt_ai_trt_tpu_torch.config import DEFAULT_CONFIG
     from dsvt_ai_trt_tpu_torch.runtime.infer import Engine
 
-    t0 = time.perf_counter()
+    t0 = t_script = time.perf_counter()
     per_kernel = kernels.build_all()
     log({"phase": "build", "seconds": time.perf_counter() - t0,
          "per_kernel_seconds": per_kernel})
@@ -1237,17 +1498,29 @@ def _main(torch) -> int:
              "frame_profile_ms": in_frame,
              "bound_share": res["bound_ms"] / res["device_ms"], **res})
 
-    log({"phase": "golden", **check_tiny_golden()})
+    def timed(phase, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        log({"phase": phase, **out, "phase_seconds": time.perf_counter() - t})
+        return out
+
+    timed("golden", check_tiny_golden)
+    t = time.perf_counter()
     suite = check_parity_suite(frames)
-    log({"phase": "mixed", **check_mixed(frames)})
+    log({"phase": "parity_seconds", "seconds": time.perf_counter() - t})
+    timed("mixed", check_mixed, frames)
 
     with tempfile.TemporaryDirectory() as tmp:
-        log({"phase": "native", **check_native(frames, tmp)})
-        log({"phase": "runtime", **check_runtime(engine, frames, tmp)})
-        log({"phase": "waymo", **check_waymo(tmp)})
+        timed("native", check_native, frames, tmp)
+        timed("runtime", check_runtime, engine, frames, tmp)
+        timed("waymo", check_waymo, tmp)
         with torch.inference_mode(False):
-            log({"phase": "training", **check_training(frames, tmp)})
+            timed("training", check_training, frames, tmp)
+    timed("multi", check_multi, engine, frames)
+    t = time.perf_counter()
     run_bench(frames, suite)        # prints its own line
+    log({"phase": "bench_seconds", "seconds": time.perf_counter() - t,
+         "script_seconds": time.perf_counter() - t_script})
 
     sources = {name: "dsvt_ai_trt_tpu_torch/csrc/" + kernels.SPECS[name][0]
                for name in PER_FRAME}

@@ -73,15 +73,23 @@ def coverage(queries: np.ndarray, pool: np.ndarray,
     — two overlapping query boxes may be witnessed by one pool box — which
     is the correct semantics for "every confident box must exist on the
     other side" parity gates (greedy 1:1 matching under-counts on clustered
-    near-duplicates)."""
+    near-duplicates).  Only same-class pool boxes whose BEV circumcircle
+    meets the query's are clipped: the others overlap it nowhere, and an
+    IoU of 0 never beats the threshold."""
     n = len(queries)
     hit = 0
     score_err = center_err = 0.0
+    pool = np.asarray(pool)
+    radii = 0.5 * np.hypot(pool[:, 3], pool[:, 4]) if len(pool) else None
     for q in queries:
         best_iou, best_j = iou_threshold, -1
-        for j in range(len(pool)):
-            if int(q[7]) != int(pool[j, 7]):
-                continue
+        near = []
+        if len(pool):
+            near = np.nonzero(
+                (pool[:, 7].astype(int) == int(q[7]))
+                & (np.hypot(pool[:, 0] - q[0], pool[:, 1] - q[1])
+                   <= radii + 0.5 * np.hypot(q[3], q[4]) + 1e-3))[0]
+        for j in near:
             iou = _bev_iou(q, pool[j])
             if iou > best_iou:
                 best_iou, best_j = iou, j

@@ -14,6 +14,12 @@ and run NCHW-logical tensors in the ``channels_last`` memory layout, which
 is the [H, W, C] layout of the public functions, so entering and leaving
 the stack moves no data.  bf16 convs emit bf16; mixed convs take bf16
 inputs and return f32.
+
+Inside ``parallel.spatial.spatial_sharding`` the map holds this rank's
+rows only (``spatial.bev_range``): every conv runs on them with halo rows
+from its neighbours (``spatial.conv2d_rows``), every deblock locally
+(``spatial.conv_transpose_rows``), and the three laterals, each at this
+rank's rows of the full map, concatenate per rank.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch.nn.functional as F
 
 from ..config import BACKBONE2D_STAGES, BACKBONE2D_DEBLOCK
 from ..ops.common import compute_dtype, matmul_dtype, relu
+from ..parallel import spatial
 
 
 def to_nchw(x_hwc: torch.Tensor) -> torch.Tensor:
@@ -37,10 +44,14 @@ def to_hwc(x_nchw: torch.Tensor) -> torch.Tensor:
 
 def conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int = 1,
          precision: str = "fp32") -> torch.Tensor:
-    """Conv with OIHW ``w``, symmetric k//2 padding, bias; NCHW in/out."""
+    """Conv with OIHW ``w``, symmetric k//2 padding, bias; NCHW in/out
+    (this rank's rows under spatial sharding)."""
     mdt = matmul_dtype(precision)
-    y = F.conv2d(x.to(mdt), w.to(mdt), b.to(mdt), stride=stride,
-                 padding=w.shape[-1] // 2)
+    x, w, b = x.to(mdt), w.to(mdt), b.to(mdt)
+    if spatial.active():
+        y = spatial.conv2d_rows(x, w, b, stride)
+    else:
+        y = F.conv2d(x, w, b, stride=stride, padding=w.shape[-1] // 2)
     return y.to(compute_dtype(precision))
 
 
@@ -57,7 +68,11 @@ def _res_unit(x, unit, stride, precision):
 def _upsample(x, w, b, k, precision):
     """ConvTranspose2d with kernel == stride; w is [in, out, k, k]."""
     mdt = matmul_dtype(precision)
-    y = F.conv_transpose2d(x.to(mdt), w.to(mdt), b.to(mdt), stride=k)
+    x, w, b = x.to(mdt), w.to(mdt), b.to(mdt)
+    if spatial.active():
+        y = spatial.conv_transpose_rows(x, w, b, k)
+    else:
+        y = F.conv_transpose2d(x, w, b, stride=k)
     return relu(y).to(compute_dtype(precision))
 
 

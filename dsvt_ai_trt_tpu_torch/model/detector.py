@@ -13,10 +13,15 @@ label, STAGES), so a profiler trace splits a frame's time by stage and
 ``runtime.profiler.count_flops`` counts FLOPs by stage; outside a profiler
 the labels cost a few microseconds per frame.
 
-``forward_scan`` is the throughput form of the JAX package's ``lax.scan``
-batching: the frames of a batch one after another, outputs stacked.
-``forward_batch`` (the vmap form, for data parallelism over several
-devices) waits for the multi-device slice, ROADMAP queue A14.
+``forward_batch`` is the per-frame stacked form that the JAX package's
+vmap computes (the form data parallelism runs on each dp rank,
+parallel/mesh.py:make_dp_engine) and ``forward_scan`` its throughput form
+(``lax.scan`` there): in PyTorch both are the frames of a batch one after
+another, outputs stacked, so they are one function.  ``tp`` (a process
+group; params from ``parallel.mesh.rank_params``) runs the encoders tensor
+parallel (model/backbone3d.py), and ``forward_spatial`` is ``forward``
+inside ``parallel.spatial.spatial_sharding``: one frame sharded by pillar,
+set and BEV rows over a group, every rank returning the same boxes.
 
 ``forward_train`` is ``forward_debug`` with autograd on, for the training
 loss (parallel/training.py): the plain paths (kernels B1-B3 define no
@@ -41,6 +46,7 @@ from ..ops.common import resolve_device
 from ..ops.postprocess import Detections, decode_and_filter
 from ..ops.voxelize import Pillars, voxelize
 from ..ops.windows import partition
+from ..parallel.spatial import spatial_sharding
 from ..runtime.profiler import stage_scope
 from .backbone2d import backbone2d_forward
 from .backbone3d import backbone3d_forward
@@ -72,9 +78,10 @@ STAGES = ("voxelize", "vfe", "partition", "backbone3d", "bev_scatter",
 
 @torch.inference_mode()
 def forward(params: Dict, points, num_points, cfg: DSVTConfig,
-            with_nms: bool = False, device="cuda") -> Detections:
+            with_nms: bool = False, device="cuda", tp=None) -> Detections:
     """points: [max_points, 4] (array or tensor); num_points: int or [].
-    The hand-written kernels run where ``cfg.use_pallas`` is set."""
+    The hand-written kernels run where ``cfg.use_pallas`` is set.  ``tp``:
+    the tensor-parallel group of the encoders (module docstring)."""
     points, num = _inputs(params, points, num_points, device)
     precision = cfg.precision
     use_kernels = cfg.use_pallas
@@ -87,7 +94,7 @@ def forward(params: Dict, points, num_points, cfg: DSVTConfig,
         wparts, sparts = _partitions(pillars, cfg)
     with stage_scope("backbone3d"):
         feats = backbone3d_forward(feats, wparts, sparts, params, cfg,
-                                   use_kernels=use_kernels)
+                                   use_kernels=use_kernels, tp=tp)
     with stage_scope("bev_scatter"):
         if precision == "bf16":
             feats = feats.to(torch.bfloat16)
@@ -96,7 +103,8 @@ def forward(params: Dict, points, num_points, cfg: DSVTConfig,
     with stage_scope("backbone2d"):
         bev = backbone2d_forward(bev, params["backbone2d"], precision)
     with stage_scope("head"):
-        head_out = head_forward(bev, params["head"], precision, lazy=True)
+        head_out = head_forward(bev, params["head"], precision, cfg,
+                                lazy=True)
     with stage_scope("decode"):
         dets = decode_and_filter(head_out, cfg, head_params=params["head"])
     if with_nms:
@@ -110,16 +118,30 @@ def forward(params: Dict, points, num_points, cfg: DSVTConfig,
     return dets._replace(occupancy=occupancy)
 
 
-def forward_scan(params: Dict, points, num_points, cfg: DSVTConfig,
-                 with_nms: bool = False, device="cuda") -> Detections:
+def forward_batch(params: Dict, points, num_points, cfg: DSVTConfig,
+                  with_nms: bool = False, device="cuda",
+                  tp=None) -> Detections:
     """points [B, max_points, 4], num_points [B]: each frame through
     ``forward`` in turn; returns stacked Detections (boxes [B, top_k, 9],
     count [B], occupancy [B, 2 + n_window_specs])."""
-    dets = [forward(params, points[b], num_points[b], cfg, with_nms, device)
-            for b in range(len(points))]
+    dets = [forward(params, points[b], num_points[b], cfg, with_nms, device,
+                    tp) for b in range(len(points))]
     return Detections(boxes=torch.stack([d.boxes for d in dets]),
                       count=torch.stack([d.count for d in dets]),
                       occupancy=torch.stack([d.occupancy for d in dets]))
+
+
+forward_scan = forward_batch
+
+
+def forward_spatial(params: Dict, points, num_points, cfg: DSVTConfig,
+                    with_nms: bool = False, device="cuda",
+                    group=None) -> Detections:
+    """``forward`` of one frame sharded over ``group`` (None: the default
+    process group) by ``parallel.spatial``; every rank returns the same
+    Detections."""
+    with spatial_sharding(group):
+        return forward(params, points, num_points, cfg, with_nms, device)
 
 
 class IntermediateOutputs(NamedTuple):
@@ -142,13 +164,14 @@ def partition_frame(params, points, num_points, cfg: DSVTConfig,
 
 
 def float_stages(params, pillars: Pillars, wparts, sparts, cfg: DSVTConfig,
-                 live_weights: bool = False) -> IntermediateOutputs:
+                 live_weights: bool = False, tp=None) -> IntermediateOutputs:
     """VFE to the full-map head on the plain paths, from the partitions of
-    ``partition_frame``."""
+    ``partition_frame``; ``tp`` as in ``forward``."""
     precision = cfg.precision
     pfeats = vfe_forward(pillars, params["vfe"], cfg, use_kernels=False)
     dfeats = backbone3d_forward(pfeats, wparts, sparts, params, cfg,
-                                use_kernels=False, live_weights=live_weights)
+                                use_kernels=False, live_weights=live_weights,
+                                tp=tp)
     bev = map_to_bev(dfeats, pillars.coords, pillars.pillar_valid,
                      (cfg.grid_size[1], cfg.grid_size[0]))
     bev2 = backbone2d_forward(bev, params["backbone2d"], precision)
@@ -166,9 +189,9 @@ def forward_debug(params, points, num_points, cfg: DSVTConfig,
 
 
 def forward_train(params, points, num_points, cfg: DSVTConfig,
-                  device="cuda") -> IntermediateOutputs:
+                  device="cuda", tp=None) -> IntermediateOutputs:
     """``forward_debug`` with autograd on and the projections packed from
     the live weights (module docstring)."""
     return float_stages(params, *partition_frame(params, points, num_points,
                                                  cfg, device), cfg,
-                        live_weights=True)
+                        live_weights=True, tp=tp)

@@ -66,12 +66,13 @@ def kernel_weights(enc: dict) -> dict:
     """The kernel's weight operands of one encoder pass: wo, w1 and w2 in
     the bf16 panel layout (when the widths fit the kernel) and the six
     LayerNorm vectors stacked [6, C] in f32 (ln1, ln2, norm; gamma then
-    beta)."""
+    beta).  A tensor-parallel shard (wo [C/mp, C]) is no whole epilogue
+    and gets no panels."""
     C, F = enc["ffn_w1"].shape
     out = {"ln_stack": torch.stack([enc["ln1_g"], enc["ln1_b"], enc["ln2_g"],
                                     enc["ln2_b"], enc["norm_g"],
                                     enc["norm_b"]]).float().contiguous()}
-    if kernel_fits(C, F):
+    if kernel_fits(C, F) and tuple(enc["wo"].shape) == (C, C):
         out.update(wo_panels_bf16=panel_layout(enc["wo"], C),
                    ffn_w1_panels_bf16=panel_layout(enc["ffn_w1"], C),
                    ffn_w2_panels_bf16=panel_layout(enc["ffn_w2"], C))

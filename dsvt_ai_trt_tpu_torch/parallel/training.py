@@ -23,6 +23,16 @@ shapes).  ``remat`` (on by default on the card, as JAX's follows its
 backend) wraps each frame's float stages in ``torch.utils.checkpoint``; the
 integer stages run before it and carry no gradient, so the recomputation
 reads the same partitions.
+
+``make_train_step(..., mesh=...)`` trains over a ``parallel.mesh`` mesh.
+dp: each dp rank takes its B/dp frames of the global batch, and after the
+backward the gradients are averaged over the dp group (one all-reduce of
+every gradient, flattened), which is the gradient of JAX's global mean of
+the per-frame losses when the shares are equal; the returned loss is that
+global mean.  mp: the encoders run Megatron's route
+(model/backbone3d.py, ``live_weights``), each rank steps AdamW on its own
+shards and on its copy of the replicated leaves (their gradients are whole
+and equal on every mp rank), and ``weights.refold`` refolds each shard.
 """
 
 from __future__ import annotations
@@ -38,6 +48,8 @@ from ..model.detector import float_stages, forward_train, partition_frame
 from ..ops.common import resolve_device
 from ..weights import (keystr, named_leaves, refold, to_numpy_leaf,
                        to_torch_leaf, trainable)
+from .collectives import all_reduce
+from .mesh import COL, COL_BIAS, ROW
 
 
 class Targets(NamedTuple):
@@ -102,27 +114,29 @@ def head_loss(out: dict, targets: Targets, dir_weight: float = 0.25,
 
 def detection_loss(params, points, num_points, targets: Targets,
                    cfg: DSVTConfig, dir_weight: float = 0.25,
-                   aux_weight: float = 0.25, device="cuda") -> torch.Tensor:
+                   aux_weight: float = 0.25, device="cuda",
+                   tp=None) -> torch.Tensor:
     """The loss of one frame (``forward_train``'s head maps)."""
-    out = forward_train(params, points, num_points, cfg, device).head_out
+    out = forward_train(params, points, num_points, cfg, device, tp).head_out
     return head_loss(out, targets, dir_weight, aux_weight)
 
 
 def batched_loss(params, points, num_points, targets: Targets,
                  cfg: DSVTConfig, remat: Optional[bool] = None,
                  dir_weight: float = 0.25, aux_weight: float = 0.25,
-                 device="cuda") -> torch.Tensor:
+                 device="cuda", tp=None) -> torch.Tensor:
     """Mean of the per-frame losses of a batch (points [B, max_points, 4],
     num_points [B], targets with a leading B), frames one after another.
     ``remat`` (default: on the card) recomputes each frame's float stages
-    in the backward instead of keeping their activations."""
+    in the backward instead of keeping their activations.  ``tp``: the
+    encoders' tensor-parallel group (Megatron's route)."""
     device = resolve_device(device)
     if remat is None:
         remat = device.type == "cuda"
 
     def frame_loss(pillars, wparts, sparts, frame_targets):
         out = float_stages(params, pillars, wparts, sparts, cfg,
-                           live_weights=True).head_out
+                           live_weights=True, tp=tp).head_out
         return head_loss(out, frame_targets, dir_weight, aux_weight)
 
     losses = []
@@ -143,11 +157,18 @@ def default_optimizer(params) -> torch.optim.Optimizer:
                              eps=1e-8, weight_decay=1e-4)
 
 
-def clip_by_global_norm(grads, max_norm: float) -> None:
+def clip_by_global_norm(grads, max_norm: float, sharded=(),
+                        tp=None) -> None:
     """``optax.clip_by_global_norm``, in place: every gradient scaled by
     max_norm / |g| when the global norm |g| >= max_norm (no epsilon, unlike
-    ``torch.nn.utils.clip_grad_norm_``), else left as it is."""
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    ``torch.nn.utils.clip_grad_norm_``), else left as it is.  Under tensor
+    parallelism the squares of the ``sharded`` gradients are summed over
+    ``tp`` (each rank holds a part), those of the others counted once."""
+    sq = sum(torch.sum(g * g) for g in grads)
+    if tp is not None:
+        part = sum(torch.sum(g * g) for g in sharded)
+        sq = sq + all_reduce(part, tp) - part
+    norm = torch.sqrt(sq)
     for g in grads:
         g.copy_(torch.where(norm < max_norm, g, g / norm * max_norm))
 
@@ -155,35 +176,61 @@ def clip_by_global_norm(grads, max_norm: float) -> None:
 def make_train_step(cfg: DSVTConfig, params, optimizer=None,
                     dir_weight: float = 0.25, aux_weight: float = 0.25,
                     max_grad_norm: Optional[float] = None,
-                    remat: Optional[bool] = None, device="cuda"):
+                    remat: Optional[bool] = None, device="cuda",
+                    mesh=None):
     """Returns (optimizer, train_step).  ``params`` (``weights.
-    from_jax_params`` on ``device``) are updated in place: their
-    ``trainable`` leaves get ``requires_grad``, and ``optimizer`` (default
-    ``default_optimizer``) must hold exactly those.  ``train_step(points,
-    num_points, targets)`` computes ``batched_loss``, its gradients (clipped
-    to ``max_grad_norm`` when given), takes one optimizer step, refolds the
-    derived weights and returns the loss (detached; reading it waits for
-    the card)."""
+    from_jax_params`` on ``device``; under a ``mesh``, ``parallel.mesh.
+    rank_params``) are updated in place: their ``trainable`` leaves get
+    ``requires_grad``, and ``optimizer`` (default ``default_optimizer``)
+    must hold exactly those.  ``train_step(points, num_points, targets)``
+    computes ``batched_loss``, its gradients (clipped to ``max_grad_norm``
+    when given), takes one optimizer step, refolds the derived weights and
+    returns the loss (detached; reading it waits for the card).  With a
+    ``mesh``, the arguments are the global batch (module docstring)."""
     device = resolve_device(device)
+    dp = mesh.dp if mesh is not None else 1
+    tp = mesh.mp_group if mesh is not None else None
+    if tp is not None:                 # whole weights an update would stale
+        for blk in params["blocks"]:
+            for enc in blk["enc"]:
+                enc.pop("epilogue", None)
+    sharded = [t for p, t in named_leaves(params) if tp is not None
+               and p[0] == "blocks" and p[-1] in COL + COL_BIAS + ROW]
     leaves = trainable(params)
     for t in leaves:
         t.requires_grad_(True)
     optimizer = optimizer or default_optimizer(params)
 
     def train_step(points, num_points, targets: Targets) -> torch.Tensor:
+        if dp > 1:                     # this dp rank's share of the batch
+            share = len(points) // dp
+            if share * dp != len(points):
+                raise ValueError(f"train_step: batch {len(points)} does not "
+                                 f"split over dp={dp}")
+            rows = slice(mesh.dp_rank * share, (mesh.dp_rank + 1) * share)
+            points, num_points = points[rows], num_points[rows]
+            targets = Targets(*(t[rows] for t in targets))
         optimizer.zero_grad(set_to_none=True)
         loss = batched_loss(params, points, num_points, targets, cfg,
                             remat=remat, dir_weight=dir_weight,
-                            aux_weight=aux_weight, device=device)
+                            aux_weight=aux_weight, device=device, tp=tp)
         loss.backward()
         for t in leaves:             # unused leaves: zero, as in optax
             if t.grad is None:
                 t.grad = torch.zeros_like(t)
+        loss = loss.detach()
+        if dp > 1:
+            flat = all_reduce(torch.cat([t.grad.reshape(-1) for t in leaves]),
+                              mesh.dp_group) / dp
+            for t, g in zip(leaves, flat.split([t.numel() for t in leaves])):
+                t.grad.copy_(g.view_as(t))
+            loss = all_reduce(loss, mesh.dp_group) / dp
         if max_grad_norm is not None:
-            clip_by_global_norm([t.grad for t in leaves], max_grad_norm)
+            clip_by_global_norm([t.grad for t in leaves], max_grad_norm,
+                                [t.grad for t in sharded], tp)
         optimizer.step()
         refold(params)
-        return loss.detach()
+        return loss
 
     return optimizer, train_step
 

@@ -97,9 +97,6 @@ def run_parity(fast: str = "bf16", density: str = "nuscenes",
     frames = list(frames_for(cfg32, density).items())[:n_frames]
     t0 = time.perf_counter()
     min_score = cfg32.score_threshold + SCORE_MARGIN
-    worst = {"recall": 1.0, "precision": 1.0, "score_err": 0.0,
-             "center_err": 0.0}
-    n_conf = {"ref": 0, "fast": 0}
     frame_stats = []
     for name, (pts, n) in frames:
         raw = weights.calibrated_raw(cfg32, pts, n, seed=0,
@@ -107,38 +104,53 @@ def run_parity(fast: str = "bf16", density: str = "nuscenes",
                                      device=device)
         params = weights.from_jax_params(weights.prepare_params(raw, cfg32),
                                          device)
-        ref_all = boxes_for(params, cfg32, pts, n, device)
-        got_all = boxes_for(params, cfg_fast, pts, n, device)
-        ref_conf = ref_all[ref_all[:, 8] >= min_score]
-        got_conf = got_all[got_all[:, 8] >= min_score]
-        # asymmetric coverage: each confident box on one side must exist
-        # on the other at all (score >= the threshold); filtering both
-        # sides at the margin would make churn at the margin a miss
-        r = coverage(ref_conf, got_all, iou_threshold=0.5)
-        p = coverage(got_conf, ref_all, iou_threshold=0.5)
         stats = {"frame": name, "points": int(n),
-                 "n_conf_ref": len(ref_conf), "n_conf_fast": len(got_conf),
-                 "recall": r["coverage"], "precision": p["coverage"],
-                 "max_score_err": max(r["max_score_err"], p["max_score_err"]),
-                 "max_center_err": max(r["max_center_err"],
-                                       p["max_center_err"])}
+                 **compare(boxes_for(params, cfg32, pts, n, device),
+                           boxes_for(params, cfg_fast, pts, n, device),
+                           min_score)}
         if verbose:
             print(json.dumps(stats), flush=True)
         frame_stats.append(stats)
-        n_conf["ref"] += len(ref_conf)
-        n_conf["fast"] += len(got_conf)
-        worst["recall"] = min(worst["recall"], stats["recall"])
-        worst["precision"] = min(worst["precision"], stats["precision"])
-        worst["score_err"] = max(worst["score_err"], stats["max_score_err"])
-        worst["center_err"] = max(worst["center_err"], stats["max_center_err"])
+    return {"precision_mode": fast, "density": density, "ckpt": "calibrated",
+            "approx_topk": False, "frames": frame_stats,
+            **gate(frame_stats), "pass_recall": PASS_RECALL,
+            "seconds": time.perf_counter() - t0}
+
+
+def compare(ref_all: np.ndarray, got_all: np.ndarray,
+            min_score: float) -> dict:
+    """One frame's boxes before NMS, reference against fast: the coverage
+    of each side's confident boxes (score >= ``min_score``) among all of
+    the other side's (module docstring), and the worst matched score and
+    centre errors."""
+    ref_conf = ref_all[ref_all[:, 8] >= min_score]
+    got_conf = got_all[got_all[:, 8] >= min_score]
+    # asymmetric coverage: each confident box on one side must exist on
+    # the other at all (score >= the threshold); filtering both sides at
+    # the margin would make churn at the margin a miss
+    r = coverage(ref_conf, got_all, iou_threshold=0.5)
+    p = coverage(got_conf, ref_all, iou_threshold=0.5)
+    return {"n_conf_ref": len(ref_conf), "n_conf_fast": len(got_conf),
+            "recall": r["coverage"], "precision": p["coverage"],
+            "max_score_err": max(r["max_score_err"], p["max_score_err"]),
+            "max_center_err": max(r["max_center_err"], p["max_center_err"])}
+
+
+def gate(frame_stats: list) -> dict:
+    """The gate over a row's frames (``compare``'s results): the worst
+    recall, precision and errors, the confident boxes of each side, and
+    ``parity_ok``."""
+    worst = {"recall": min(f["recall"] for f in frame_stats),
+             "precision": min(f["precision"] for f in frame_stats),
+             "score_err": max(f["max_score_err"] for f in frame_stats),
+             "center_err": max(f["max_center_err"] for f in frame_stats)}
+    n_conf = {"ref": sum(f["n_conf_ref"] for f in frame_stats),
+              "fast": sum(f["n_conf_fast"] for f in frame_stats)}
     ok = (worst["recall"] >= PASS_RECALL and worst["precision"] >= PASS_RECALL
           and worst["score_err"] <= MAX_SCORE_ERR
           and worst["center_err"] <= MAX_CENTER_ERR
           and min(n_conf.values()) >= MIN_CONFIDENT)
-    return {"precision_mode": fast, "density": density, "ckpt": "calibrated",
-            "approx_topk": False, "frames": frame_stats, "worst": worst,
-            "n_confident": n_conf, "pass_recall": PASS_RECALL,
-            "parity_ok": bool(ok), "seconds": time.perf_counter() - t0}
+    return {"worst": worst, "n_confident": n_conf, "parity_ok": bool(ok)}
 
 
 def run_suite(n_frames: int = 3, cfg: Optional[DSVTConfig] = None,

@@ -529,8 +529,8 @@ def refold(params: Dict) -> Dict:
 
 
 def _is_folded(path) -> bool:
-    from .model.backbone3d import FOLDED_KEYS
-    return path[0] == "blocks" and path[-1] in FOLDED_KEYS
+    from .model.backbone3d import DERIVED_KEYS
+    return path[0] == "blocks" and path[-1] in DERIVED_KEYS
 
 
 def keystr(path) -> str:

@@ -107,14 +107,16 @@ def test_port_imports_no_jax():
         "ported = [n for n in sys.modules if n.startswith('dsvt_ai_trt_tpu_torch.')]\n"
         "want = ['cli', 'bench', 'runtime.compile', 'runtime.trace',\n"
         "        'runtime.profiler', 'io.host_nms', 'data',\n"
-        "        'parallel.training', 'train_run', 'parity', 'heading_probe']\n"
+        "        'parallel.training', 'train_run', 'parity', 'heading_probe',\n"
+        "        'parallel.collectives', 'parallel.mesh', 'parallel.spatial',\n"
+        "        'parallel.dryrun']\n"
         "missing = [w for w in want if 'dsvt_ai_trt_tpu_torch.' + w not in ported]\n"
         "print(len(ported), missing, bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_ported, rest = out.stdout.strip().split(" ", 1)
-    assert int(n_ported) >= 26      # every module was imported
+    assert int(n_ported) >= 30      # every module was imported
     assert rest == "[] []", rest    # the serving modules too; no JAX
 
 
