@@ -4,20 +4,28 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. build the four CUDA kernels from ``dsvt_ai_trt_tpu_torch/csrc`` (one
+  1. build the five CUDA kernels from ``dsvt_ai_trt_tpu_torch/csrc`` (one
      ``nvcc`` each, all at once) and print the build seconds;
   2. print the card's name and power limit;
   3. run ``Engine`` at ``DEFAULT_CONFIG`` width with ``precision="bf16"`` and
      seeded random weights on three synthetic frames
      (``bench.synthetic_frames``: 20 000 points that fill the 800 sets, a
      sparse 4 000-point frame with fewer live sets, a second 20 000-point
-     seed); print boxes, occupancy and ms per frame (CUDA events, after
-     warm-up);
-  4. check the launch counters rose by exactly 2 / 8 / 8 / 1 per frame
-     (segment_max / set_attention / encoder_epilogue / rotated_overlap);
-  5. hold each kernel against its plain PyTorch version on the inputs the
-     main path gave it (B3 and B4 on all three frames, with B4's NMS kept
-     set and its count of 64-slot reruns), and time kernel, plain version
+     seed): each frame is one replay of the CUDA graph the engine captured
+     at warm-up; print boxes, occupancy and ms per frame (CUDA events,
+     after warm-up);
+  4. check the launch counters rose by exactly 2 / 8 / 8 / 1 / 1 per frame
+     (segment_max / set_attention / encoder_epilogue / rotated_overlap /
+     nms_peel; a replay counts what its capture recorded);
+  5. run the same frames through the eager forward (``Engine.eager``):
+     its outputs equal the replays' bit for bit, and it records the
+     kernels' inputs (a replay calls no Python); profile one eager frame
+     by stage; hold each kernel against its plain PyTorch version on those
+     inputs (B3 and B4 on all three frames, with B4's NMS kept
+     set and its count of 64-slot reruns; nms_peel bit-equal on all three
+     and on a constructed 500-box suppression chain, 250 rounds, where the
+     whole NMS on the card also equals the CPU's), and time kernel, plain
+     version
      and, where one exists, the PyTorch library call computing the same
      function: by CUDA events around back-to-back calls (host dispatch
      included), and for the kernel and the library call also device-only
@@ -25,6 +33,17 @@ Phases (any failure exits non-zero):
      call (``wrapper_device_ms``); B3 also on a seeded stream of 1..48-row
      segments (real clouds' pillars), B2 also at 1, 132 and 264 tiles of 64
      rows;
+  5b. graph (``check_graph``): one eager kernel-path frame under
+     ``torch.cuda.set_sync_debug_mode("error")`` (no synchronisation);
+     engines with and without NMS at ``DEFAULT_CONFIG`` and at
+     ``WAYMO_CONFIG`` (the densified Waymo frame): the capture holds
+     2/8/8/1/1 launches (no B4 or nms_peel without NMS), and replays equal
+     the eager forward bit for bit (boxes, count, occupancy); two engines'
+     replays interleaved with no wait keep their own results; capture
+     seconds and the graph pool's MB; sync and stream ms a frame, eager
+     against graph (medians of 5 alternated samples), the host's ms to
+     enqueue one frame, and a traced frame of each (device ms, span, idle
+     share, host ms in launch calls and waiting);
   6. golden: the tiny configuration's fp32 boxes on the card against
      ``tests/goldens/tiny_seed0.json``;
   7. parity_suite: ``parity.run_suite``, the four rows {bf16, mixed} x
@@ -32,7 +51,7 @@ Phases (any failure exits non-zero):
      each frame, each gated (``parity.py``); then ``eval.parity_ok`` after
      NMS on the three frames, printed, not gated (``check_parity_suite``);
   8. mixed: ``Engine`` at ``DEFAULT_CONFIG`` with ``precision="mixed"`` on
-     the three frames: launch counts 2/8/8/1 per frame, finite boxes, ms
+     the three frames: launch counts 2/8/8/1/1 per frame, finite boxes, ms
      per frame (CUDA events) and device ms per frame and stage
      (``trace.capture``), and each kernel held against its plain version
      and timed on the inputs mixed gave it, as in phase 5 (B3 on float32
@@ -47,15 +66,16 @@ Phases (any failure exits non-zero):
      and gives NMS-on-the-card's boxes;
  10. runtime: the three frames written as .bin files, ``cli build
      --engine`` then ``cli infer --engine --pipeline-depth 2``: rows equal
-     the direct ``Engine`` call's at 1e-4 and the launch counts rise 2/8/8/1
-     per frame (the engine's warm-up frame included); ``--host-nms`` keeps
+     the direct ``Engine`` call's at 1e-4 and the launch counts rise
+     2/8/8/1/1 per frame (the engine's warm-up included: its eager frames
+     and its first replay); ``--host-nms`` keeps
      the same count and rows as NMS on the card, and ``--scan-batch 2``
      equals the stream;
  11. waymo: ``WAYMO_CONFIG`` at full width on a seeded frame densified to
-     180 000 points (``bench.waymo_base_frame``): launch counts 2/8/8/1,
-     finite boxes, occupancy under every cap; B1 and B3 held against their
-     plain versions on the inputs that frame gave them, and timed with
-     bounds;
+     180 000 points (``bench.waymo_base_frame``): launch counts 2/8/8/1/1
+     of a replay, finite boxes, occupancy under every cap; B1 and B3 held
+     against their plain versions on the inputs that frame's eager pass
+     gave them, and timed with bounds;
  12. training (``check_training``), outside inference mode:
      ``DEFAULT_CONFIG`` at fp32 and full width on a fixed seeded batch of 2
      planted scenes (``data.synthetic_batch``): one step's loss and
@@ -65,7 +85,7 @@ Phases (any failure exits non-zero):
      events and peak memory with and without ``remat``, one step traced
      (``runtime/trace.capture``: device ms, idle share, FLOPs, MFU at 67
      TFLOP/s fp32); then the trained weights, refolded, through the bf16
-     ``Engine`` on the three frames (launch counts 2/8/8/1 per frame, every
+     ``Engine`` on the three frames (launch counts 2/8/8/1/1 per frame, every
      top-k box equal at 1e-4 to those of the weights exported as .wts and
      reloaded);
      ``cli train`` for 1 + 1 steps with ``--resume`` and ``--export-wts``;
@@ -83,8 +103,8 @@ Phases (any failure exits non-zero):
      bf16 (B1 on a rank's 400 sets, B2 on its 5 000 pillar rows) pass
      ``parity.py``'s gate against the unsharded bf16 boxes before NMS;
      sp=2 at fp32 equals the unsharded fp32 boxes at 1e-4, with the 117-row
-     level split 58 / 59; each rank's launches over its pass are 2/8/8/1 a
-     frame (sp fp32: B3 and B4 only); each rank (``multi_rank``) records
+     level split 58 / 59; each rank's launches over its pass are 2/8/8/1/1 a
+     frame (sp fp32: B3, B4 and nms_peel only); each rank (``multi_rank``) records
      the inputs of B1 and B2's first call in each mode, and once the ranks
      have exited they are held against the plain versions and timed here,
      as phase 5 holds the main path's (``check_set_attention``,
@@ -133,18 +153,21 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12                # dense tensor-core bf16
 F32_FLOPS = 67e12                  # f32 outside the tensor cores
 PER_FRAME = {"segment_max": 2, "set_attention": 8, "encoder_epilogue": 8,
-             "rotated_overlap": 1}
-SYMBOLS = {                        # the __global__ function of each kernel
+             "rotated_overlap": 1, "nms_peel": 1}
+NMS_KERNELS = ("rotated_overlap", "nms_peel")   # none without NMS
+SYMBOLS = {                        # the __global__ function(s) of each kernel
     "segment_max": "segment_max_kernel",
     "set_attention": "set_attention_kernel",
     "encoder_epilogue": "encoder_epilogue_kernel",
     "rotated_overlap": "rotated_overlap_kernel",
+    "nms_peel": "nms_peel",        # nms_peel_pack_kernel + nms_peel_kernel
 }
 REPLACES = {
     "segment_max": "dsvt_ai_trt_tpu/ops/segment_pallas.py:125",
     "set_attention": "dsvt_ai_trt_tpu/ops/attention_pallas.py:183",
     "encoder_epilogue": "dsvt_ai_trt_tpu/ops/encoder_pallas.py:64",
     "rotated_overlap": "dsvt_ai_trt_tpu/ops/nms_pallas.py:116",
+    "nms_peel": "dsvt_ai_trt_tpu/ops/nms.py:298",   # XLA's lax.while_loop
 }
 NMS_REPS = (200, 20)               # host NMS timings: native, NumPy route
 GOLDEN_TINY = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -297,7 +320,9 @@ class Recorder:
     ``names``), keeping the inputs of each call (with ``first_only``, of
     the first call a frame) so the kernels can be held against their plain
     versions on exactly those tensors.  The wrapped call is the original
-    wrapper (which counts its own launch)."""
+    wrapper (which counts its own launch).  A CUDA graph replay calls no
+    wrapper, so it records an eager pass (``Engine.eager``), whose outputs
+    ``run_main_path`` holds equal to the replays' bit for bit."""
 
     def __init__(self, names=tuple(PER_FRAME), first_only=False):
         from dsvt_ai_trt_tpu_torch.ops import (attention_kernel, encoder_kernel,
@@ -310,6 +335,7 @@ class Recorder:
             (attention_kernel, "set_attention_fused_flat", "set_attention"),
             (encoder_kernel, "encoder_epilogue", "encoder_epilogue"),
             (nms, "pairwise_overlap", "rotated_overlap"),
+            (nms, "nms_peel", "nms_peel"),
         ) if p[2] in names]
         self._orig = []
 
@@ -332,39 +358,62 @@ class Recorder:
             setattr(mod, attr, orig)
 
 
+def on_card(frames):
+    """The frames with points and count as tensors on the card (the eager
+    forward then copies nothing from the host)."""
+    import torch
+    return {name: (torch.from_numpy(pts).cuda(),
+                   torch.tensor(int(n), device="cuda"))
+            for name, (pts, n) in frames.items()}
+
+
+def same_dets(a, b):
+    """Bit-equal boxes, count and occupancy."""
+    import torch
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 def run_main_path(engine, frames):
-    """Warm up, then ONE counted pass over the frames with the launch
-    counters set to 0 just before and read just after; then time each
-    frame.  Returns (per-frame records, counts, recorder)."""
+    """Warm up (the engine captures its CUDA graph), then ONE counted pass
+    over the frames through the engine, with the launch counters set to 0
+    just before and read just after; then an eager pass over the same
+    frames under the Recorder (the kernels' inputs), each frame's outputs
+    bit-equal to the replay's; then time each frame.  Returns (per-frame
+    records, counts, recorder)."""
     import torch
     from dsvt_ai_trt_tpu_torch import kernels
 
+    engine.warmup()
     for pts, n in frames.values():
         engine(pts, n)
     torch.cuda.synchronize()
 
-    recorder = Recorder()
-    records = {}
-    with recorder:
-        kernels.reset_counts()
-        for name, (pts, n) in frames.items():
-            recorder.frame = name
-            dets = engine(pts, n)
-            records[name] = {
-                "frame": name, "points": int(n), "boxes": int(dets.count),
-                "occupancy": dets.occupancy.cpu().tolist(),
-                "finite": bool(torch.isfinite(dets.boxes).all()),
-                "shape": list(dets.boxes.shape)}
-        torch.cuda.synchronize()
-        counts = kernels.counts()
+    records, replays = {}, {}
+    kernels.reset_counts()
+    for name, (pts, n) in frames.items():
+        replays[name] = dets = engine(pts, n)
+        records[name] = {
+            "frame": name, "points": int(n), "boxes": int(dets.count),
+            "occupancy": dets.occupancy.cpu().tolist(),
+            "finite": bool(torch.isfinite(dets.boxes).all()),
+            "shape": list(dets.boxes.shape)}
+    torch.cuda.synchronize()
+    counts = kernels.counts()
 
+    recorder = Recorder()
+    with recorder:
+        for name, (pts, n) in on_card(frames).items():
+            recorder.frame = name
+            check(same_dets(engine.eager(pts, n), replays[name]),
+                  f"{name}: the graph replay differs from the eager forward")
     for name, (pts, n) in frames.items():
         records[name]["ms"] = cuda_ms(lambda: engine(pts, n), reps=5, warmup=1)
     return records, counts, recorder
 
 
-def profile_frame(engine, pts, n, iters=2):
-    """Warm frames under torch.profiler, by ``runtime/trace.capture``, per
+def profile_frame(fn, cfg, pts, n, iters=2):
+    """Warm calls of fn (the eager forward: stage labels do not fire in a
+    graph replay) under torch.profiler, by ``runtime/trace.capture``, per
     frame: the host ms of the call (``wall_ms``), the frame's span on the
     device timeline, device busy ms (kernels, copies and memsets), the
     device's idle share of the span, the host ms spent waiting for the card
@@ -374,8 +423,8 @@ def profile_frame(engine, pts, n, iters=2):
     hand-written kernel's device ms and the top device kernels."""
     from dsvt_ai_trt_tpu_torch.runtime.profiler import device_peak_flops
     from dsvt_ai_trt_tpu_torch.runtime.trace import capture
-    prof = capture(engine, (pts, n), iters=iters)
-    table = prof.stage_table(device_peak_flops(engine.cfg.precision))
+    prof = capture(fn, (pts, n), iters=iters)
+    table = prof.stage_table(device_peak_flops(cfg.precision))
     stages = {name: {"host_ms": v["host_ms"], "device_span_ms": v["span_ms"],
                      "device_busy_ms": v["busy_ms"],
                      "gflop": table.get(name, {}).get("gflop", 0.0),
@@ -711,6 +760,229 @@ def check_rotated_overlap(recorder, frames_to_check):
     return res
 
 
+def peel_rounds(sup, count):
+    """The rounds the peeling loop takes on this mask: the plain loop,
+    counted (the kernel's work depends on them)."""
+    import torch
+    undecided = torch.arange(sup.shape[0], device=sup.device) < count
+    rounds = 0
+    while bool(undecided.any()):
+        promote = undecided & ~(sup & undecided[:, None]).any(dim=0)
+        suppressed = (sup & promote[:, None]).any(dim=0)
+        undecided = undecided & ~promote & ~suppressed
+        rounds += 1
+    return rounds
+
+
+def chain_boxes(n, spacing=0.9, length=4.0):
+    """Score-sorted boxes in a row along x, each overlapping the next by
+    (1 - spacing) of its length and no other: a suppression chain of n / 2
+    peeling rounds at IoU 0.01."""
+    boxes = np.zeros((n, 9), np.float32)
+    boxes[:, 0] = np.arange(n) * spacing * length
+    boxes[:, 3], boxes[:, 4], boxes[:, 5] = 2.0, length, 1.5
+    boxes[:, 8] = np.linspace(0.99, 0.3, n)
+    return boxes
+
+
+def check_nms_peel(recorder, frames_to_check, top_k):
+    """Kernel nms_peel vs its plain loop, bit-equal (kept set and count),
+    on each frame's suppression mask and on a constructed chain of top_k
+    boxes, each overlapping the next (top_k / 2 rounds); there also the
+    whole NMS on the card (B4 + nms_peel) against the CPU's plain NMS.
+    Timed on the first frame and on the chain.  The work depends on the
+    data: the bound counts the mask's bytes read once, the outputs written
+    once, and rounds * 2 * K * ceil(K/32) 32-bit ANDs at the f32 vector
+    rate; no PyTorch call computes the loop (library_ms null)."""
+    import torch
+    from dsvt_ai_trt_tpu_torch.ops import nms as nms_ops
+    from dsvt_ai_trt_tpu_torch.ops import nms_peel as npl
+
+    def held(sup, count, what):
+        got = npl.nms_peel_cuda(sup, count)
+        ref = npl.nms_peel_plain(sup, count)
+        check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+              f"nms_peel differs from its plain loop on {what}: "
+              f"{int(got[1])} vs {int(ref[1])} kept")
+        return int(got[1])
+
+    def timed(sup, count):
+        K = sup.shape[0]
+        rounds = peel_rounds(sup, count)
+        ops = rounds * 2 * K * ((K + 31) // 32)
+        nbytes = K * K + 8 + K + 8
+        b, by = bound_ms(nbytes, ops, F32_FLOPS)
+        t_d, how = device_ms(lambda: npl.nms_peel_cuda(sup, count),
+                             SYMBOLS["nms_peel"])
+        return {"K": K, "rounds": rounds, "bytes": nbytes, "ops": ops,
+                "ms": cuda_ms(lambda: npl.nms_peel_cuda(sup, count)),
+                "device_ms": t_d, "device_ms_by": how,
+                "plain_ms": cuda_ms(lambda: npl.nms_peel_plain(sup, count),
+                                    reps=5, warmup=1),
+                "library_ms": None, "bound_ms": b, "bound_by": by}
+
+    res = {"max_abs_err": 0.0, "per_frame": {}}
+    for frame in frames_to_check:
+        args, _kw = first_call(recorder, "nms_peel", frame)
+        sup, count = args[:2]
+        res["per_frame"][frame] = {"kept": held(sup, count, frame),
+                                   "rounds": peel_rounds(sup, count)}
+        if frame == frames_to_check[0]:
+            res.update(timed(sup, count))
+    boxes = torch.from_numpy(chain_boxes(top_k))
+    card, count = boxes.cuda(), torch.tensor(top_k, device="cuda")
+    got = nms_ops.nms(card, count, 0.01, use_kernels=True)
+    ref = nms_ops.nms(boxes, top_k, 0.01, use_kernels=False)
+    check(int(got[1]) == int(ref[1]) == (top_k + 1) // 2
+          and torch.equal(got[0].cpu(), ref[0]),
+          f"nms on the chain: {int(got[1])} kept on the card, "
+          f"{int(ref[1])} on the CPU, {(top_k + 1) // 2} expected")
+    overlap = nms_ops.pairwise_overlap(card)
+    sa = card[:, 3] * card[:, 4]
+    iou = overlap / torch.clamp(sa[:, None] + sa[None, :] - overlap,
+                                min=nms_ops.THRESHOLD)
+    idx = torch.arange(top_k, device="cuda")
+    sup = (iou >= 0.01) & (idx[:, None] < idx[None, :])
+    held(sup, count, "the chain")
+    res["chain"] = timed(sup, count)
+    return res
+
+
+def check_graph(engine, frames):
+    """The graph phase (module docstring): the engine's CUDA graph against
+    the eager forward, and what it does to the frame's time."""
+    import statistics
+    import torch
+    from dsvt_ai_trt_tpu_torch import bench, weights
+    from dsvt_ai_trt_tpu_torch.config import WAYMO_CONFIG
+    from dsvt_ai_trt_tpu_torch.runtime.compile import Engine
+    from dsvt_ai_trt_tpu_torch.runtime.trace import capture
+    dev = on_card(frames)
+    out = {}
+
+    # one eager kernel-path frame may not synchronise with the host
+    pts, n = dev["dense_seed0"]
+    engine.eager(pts, n)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        engine.eager(pts, n)
+    except RuntimeError as exc:
+        raise SmokeFailure(f"graph: the eager forward synchronises: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    out["eager_syncs"] = 0
+
+    # replays against the eager forward, with and without NMS, at the
+    # nuScenes density and the Waymo density
+    wcfg = dataclasses.replace(WAYMO_CONFIG, precision="bf16")
+    (wpts, wn), = bench.densify([bench.waymo_base_frame()],
+                                bench.WAYMO_POINTS, wcfg.max_points)
+    wparams = weights.from_jax_params(weights.random_params(wcfg, 0), "cuda")
+    engines = {"default_nms": (engine, dev),
+               "default_no_nms": (Engine(engine.params, engine.cfg,
+                                         with_nms=False), dev),
+               "waymo_nms": (Engine(wparams, wcfg), on_card(
+                   {"waymo": (wpts, wn)})),
+               "waymo_no_nms": (Engine(wparams, wcfg, with_nms=False),
+                                on_card({"waymo": (wpts, wn)}))}
+    out["engines"] = {}
+    for tag, (eng, fr) in engines.items():
+        eng.warmup()
+        want = {k: (0 if k in NMS_KERNELS and not eng.with_nms else v)
+                for k, v in PER_FRAME.items()}
+        check(eng.graph_launches == want, f"graph {tag}: the capture holds "
+              f"{eng.graph_launches}, expected {want}")
+        row = {"capture_seconds": eng.capture_seconds,
+               "graph_pool_mb": eng.graph_pool_bytes / 2**20,
+               "launches_a_replay": eng.graph_launches, "frames": {}}
+        for name, (p, c) in fr.items():
+            got = eng(p, c)
+            check(same_dets(got, eng.eager(p, c)),
+                  f"graph {tag}: replay differs from eager on {name}")
+            row["frames"][name] = int(got.count)
+        out["engines"][tag] = row
+
+    # the copy-out rule: two engines' replays interleaved, nothing waited
+    # for in between, each result still its own frame's
+    other = engines["default_no_nms"][0]
+    names = list(dev)
+    calls = []
+    for i, name in enumerate(names):
+        calls.append((engine, name, engine(*dev[name])))
+        nxt = names[(i + 1) % len(names)]
+        calls.append((other, nxt, other(*dev[nxt])))
+    torch.cuda.synchronize()
+    for eng, name, got in calls:
+        check(same_dets(got, eng.eager(*dev[name])), f"graph: an interleaved "
+              f"replay's result on {name} was changed by a later replay")
+    check(not torch.equal(calls[0][2].boxes, calls[2][2].boxes),
+          "graph: two frames gave the same boxes")
+    out["interleaved_replays"] = len(calls)
+
+    # host-clock ms a frame, eager against graph, alternated in one process
+    # (medians of 5 samples each of 2 passes over the frames)
+    def sync_ms(fn, fr):
+        t0 = time.perf_counter()
+        for _ in range(2):
+            for p, c in fr:
+                fn(p, c).count.cpu()
+        return (time.perf_counter() - t0) / (2 * len(fr)) * 1e3
+
+    def stream_ms(fn, fr):
+        t0 = time.perf_counter()
+        outs = [fn(p, c) for _ in range(2) for p, c in fr]
+        for d in outs:
+            d.count.cpu()
+        return (time.perf_counter() - t0) / (2 * len(fr)) * 1e3
+
+    out["times"] = {}
+    for tag in ("default_nms", "waymo_nms"):
+        eng, fr = engines[tag]
+        fr = list(fr.values())
+        samples = {(m, mode): [] for m in ("sync", "stream")
+                   for mode in ("eager", "graph")}
+        for rep in range(5):
+            order = ("eager", "graph") if rep % 2 == 0 else ("graph", "eager")
+            for mode in order:
+                fn = eng.eager if mode == "eager" else eng
+                samples[("sync", mode)].append(sync_ms(fn, fr))
+                samples[("stream", mode)].append(stream_ms(fn, fr))
+        row = {f"{m}_ms_{mode}": statistics.median(v)
+               for (m, mode), v in samples.items()}
+        row["samples"] = {f"{m}_{mode}": v for (m, mode), v in samples.items()}
+        # the host's time to enqueue one frame, the card idle beforehand
+        enq = {}
+        for mode in ("eager", "graph"):
+            fn = eng.eager if mode == "eager" else eng
+            ts = []
+            for _ in range(10):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(*fr[0])
+                ts.append((time.perf_counter() - t0) * 1e3)
+            enq[mode] = statistics.median(ts)
+        torch.cuda.synchronize()
+        row["enqueue_ms_eager"], row["enqueue_ms_graph"] = enq["eager"], \
+            enq["graph"]
+        # a traced frame of each: device ms, span, idle share, host ms in
+        # launch calls and waiting
+        for mode in ("eager", "graph"):
+            fn = eng.eager if mode == "eager" else eng
+            prof = capture(fn, fr[0], iters=4)
+            row[f"trace_{mode}"] = {
+                "device_ms": prof.device_ms_per_iter,
+                "span_ms": prof.window_ms_per_iter,
+                "idle_share": prof.idle_share,
+                "host_ms": prof.host_ms_per_iter,
+                "host_launch_ms": prof.host_launch_ms_per_iter,
+                "host_wait_ms": prof.host_wait_ms_per_iter,
+                "device_events": len(prof.ops) / 4}
+        out["times"][tag] = row
+    return out
+
+
 def check_tiny_golden():
     """The tiny configuration at fp32 on the card (kernels B3 and B4 on the
     path) reproduces the fp32 golden boxes at the golden's tolerance."""
@@ -786,6 +1058,7 @@ def check_runtime(engine, frames, tmp):
     """Phase 10: the CLI path on the three frames (module docstring)."""
     from dsvt_ai_trt_tpu_torch import cli, kernels
     from dsvt_ai_trt_tpu_torch.io.output import load_txt
+    from dsvt_ai_trt_tpu_torch.runtime.compile import Engine
     data = os.path.join(tmp, "frames")
     os.makedirs(data)
     names = {}
@@ -809,9 +1082,10 @@ def check_runtime(engine, frames, tmp):
     stream = infer("stream", "--engine", os.path.join(tmp, "dsvt.engine"),
                    "--pipeline-depth", "2")
     counts = kernels.counts()
-    want = {k: v * (len(frames) + 1) for k, v in PER_FRAME.items()}
+    warm = Engine.WARM_RUNS + 1      # eager warm frames, the first replay
+    want = {k: v * (len(frames) + warm) for k, v in PER_FRAME.items()}
     check(counts == want, f"cli infer launch counts {counts} != {want} "
-          f"({len(frames)} frames and the warm-up frame)")
+          f"({len(frames)} frames and {warm} warm-up frames)")
     out = {"build_seconds": build_s, "launches": counts, "frames": {}}
     for f, name in names.items():
         dets = engine(*frames[name])
@@ -856,14 +1130,16 @@ def check_waymo(tmp):
     engine = Engine(weights.random_params(cfg, 0), cfg).warmup()
     engine(pts, n)
     torch.cuda.synchronize()
-    recorder = Recorder()
-    with recorder:
-        kernels.reset_counts()
-        recorder.frame = "waymo"
-        dets = engine(pts, n)
-        torch.cuda.synchronize()
-        counts = kernels.counts()
+    kernels.reset_counts()
+    dets = engine(pts, n)
+    torch.cuda.synchronize()
+    counts = kernels.counts()
     check(counts == PER_FRAME, f"waymo launch counts {counts} != {PER_FRAME}")
+    recorder = Recorder()            # the kernels' inputs, from eager
+    with recorder:
+        recorder.frame = "waymo"
+        check(same_dets(engine.eager(*on_card({"w": (pts, n)})["w"]), dets),
+              "waymo: the graph replay differs from the eager forward")
     occ = dets.occupancy.cpu().tolist()
     caps = cap_table(cfg)[1].tolist()
     check(all(o < c for o, c in zip(occ, caps)),
@@ -1158,10 +1434,11 @@ def check_multi(engine, frames):
         return {k: (v * frames_per_rank if k in kernels_on else 0)
                 for k, v in PER_FRAME.items()}
 
-    # per rank: 2/8/8/1 a frame; sp at fp32 takes B3 and B4 only (B1 and
-    # B2 are the bf16/mixed path's); the train step launches none
+    # per rank: 2/8/8/1/1 a frame; sp at fp32 takes B3, B4 and nms_peel
+    # only (B1 and B2 are the bf16/mixed path's); the train step launches
+    # none
     expect = {"dp": want(1), "mp_bf16": want(3),
-              "sp_fp32": want(1, ("segment_max", "rotated_overlap")),
+              "sp_fp32": want(1, ("segment_max",) + NMS_KERNELS),
               "sp_bf16": want(3), "mp_train": want(0)}
     for mode, counts in expect.items():
         for r, res in enumerate(ranks):
@@ -1300,20 +1577,23 @@ def check_mixed(frames):
     for rec in records.values():
         check(rec["finite"] and rec["shape"] == [cfg.top_k, 9],
               f"mixed: bad boxes on {rec['frame']}: {rec}")
-    for name, (pts, n) in frames.items():
-        prof = capture(engine, (pts, n), iters=4)
+    for name, (pts, n) in on_card(frames).items():
+        prof = capture(engine, (pts, n), iters=3)        # graph replays
+        stages = capture(engine.eager, (pts, n), iters=3)
         records[name].update({
             "device_ms": prof.device_ms_per_iter,
             "device_idle_share": prof.idle_share,
             "host_ms_traced": prof.host_ms_per_iter,
-            "stages_device_ms": prof.stage_ms()})
+            "eager_device_ms": stages.device_ms_per_iter,
+            "stages_device_ms": stages.stage_ms()})
     # the kernel phase's checks and timings on the inputs mixed gave them
     held = {
         "segment_max": check_segment_max(recorder, list(frames), ragged=False),
         "set_attention": check_set_attention(recorder,
                                              ["dense_seed0", "sparse_seed1"]),
         "encoder_epilogue": check_encoder_epilogue(recorder, "dense_seed0"),
-        "rotated_overlap": check_rotated_overlap(recorder, list(frames))}
+        "rotated_overlap": check_rotated_overlap(recorder, list(frames)),
+        "nms_peel": check_nms_peel(recorder, list(frames), cfg.top_k)}
     dtypes = {name: sorted({str(args[0].dtype)
                             for _f, args, _kw in recorder.calls[name]})
               for name in PER_FRAME}
@@ -1478,8 +1758,10 @@ def _main(torch) -> int:
     log({"phase": "launches", "counts": counts, "expected": want})
     check(counts == want, f"launch counts {counts} != {want}")
 
-    prof = profile_frame(engine, *frames["dense_seed0"])
-    log({"phase": "profile", "frame": "dense_seed0", **prof})
+    prof = profile_frame(engine.eager, cfg,
+                         *on_card(frames)["dense_seed0"])
+    log({"phase": "profile", "frame": "dense_seed0", "forward": "eager",
+         **prof})
 
     results = {
         "segment_max": check_segment_max(recorder, list(frames)),
@@ -1487,13 +1769,15 @@ def _main(torch) -> int:
                                              ["dense_seed0", "sparse_seed1"]),
         "encoder_epilogue": check_encoder_epilogue(recorder, "dense_seed0"),
         "rotated_overlap": check_rotated_overlap(recorder, list(frames)),
+        "nms_peel": check_nms_peel(recorder, list(frames), cfg.top_k),
     }
     for name, res in results.items():
         # the same kernels' device ms in the profiled frame, per launch
-        # there (B3: its two calls together, as in "ms" and "device_ms")
+        # there (B3: its two calls together, nms_peel: its two kernels, as
+        # in "ms" and "device_ms")
         seen = prof["kernels"][name]
-        in_frame = seen["ms"] / max(seen["calls"], 1) * (
-            2 if name == "segment_max" else 1)
+        in_frame = (seen["ms"] if name in ("segment_max", "nms_peel")
+                    else seen["ms"] / max(seen["calls"], 1))
         log({"phase": "kernel", "name": name, "kernel_ms": res["ms"],
              "frame_profile_ms": in_frame,
              "bound_share": res["bound_ms"] / res["device_ms"], **res})
@@ -1504,6 +1788,7 @@ def _main(torch) -> int:
         log({"phase": phase, **out, "phase_seconds": time.perf_counter() - t})
         return out
 
+    timed("graph", check_graph, engine, frames)
     timed("golden", check_tiny_golden)
     t = time.perf_counter()
     suite = check_parity_suite(frames)

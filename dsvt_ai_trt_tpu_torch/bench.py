@@ -7,27 +7,30 @@ Prints ONE JSON line whose last keys are the headline ``metric``,
 ``value`` (ms per frame of the stream loop) and ``unit``.
 Measured after a warm pass over the .bin frames of ``--data`` (without
 it, three seeded synthetic frames: ``synthetic_frames``) at
-``DEFAULT_CONFIG`` (``--precision``, bf16 by default), NMS on the card:
+``DEFAULT_CONFIG`` (``--precision``, bf16 by default), NMS on the card.
+The ``Engine`` serves each frame by replaying one CUDA graph of the whole
+forward (runtime/compile.py); ``capture_seconds`` and ``graph_pool_mb``
+say what its warm-up took.
 
   * host clock, ms per frame: ``sync`` (each frame's boxes and count read
     back before the next), ``latency`` (``run_frames``' loop, two frames in
     flight, outputs copied back without blocking), ``stream`` (all frames
     back to back, one readback at the end; the headline) and ``batch``
-    (``forward_scan`` groups of 10, back to back).  ``forward_scan`` is a
-    Python loop of the same ``forward`` that ``stream`` times, so ``batch``
-    is a second sample of that work, kept as a side key and not folded into
-    the headline (the minimum of two noisy samples is biased low);
-  * the card, from a ``torch.profiler`` trace of frame 0
+    (``forward_scan`` groups of 10, back to back, eager: no graph).
+    ``batch`` is kept as a side key and not folded into the headline (the
+    minimum of two noisy samples is biased low);
+  * the card, from a ``torch.profiler`` trace of the engine on frame 0
     (``runtime/trace.capture``): device ms per frame, the device's idle
     share of the frame's span, the host ms a frame spends waiting for the
-    card (synchronisations and copies inside ``forward``) and in kernel
-    launch calls (both under the profiler, which slows the host), per-stage
-    device ms, a per-stage table of ms, GFLOP and MFU, and the top device
-    ops;
-  * ``flops_g`` (``runtime/profiler.count_flops`` of frame 0, the
-    hand-written kernels by their formulas), ``mfu`` against the host-clock
-    headline (stream) and ``mfu_device`` against the device ms, both at the
-    card's peak for the precision (``device_peak_flops``);
+    card and in launch calls (both under the profiler, which slows the
+    host), and the top device ops.  The per-stage device ms and the
+    per-stage table of ms, GFLOP and MFU come from a trace of the eager
+    forward (``Engine.eager``) on the same frame: the stage labels do not
+    fire inside a graph replay;
+  * ``flops_g`` (``runtime/profiler.count_flops`` of the eager forward on
+    frame 0, the hand-written kernels by their formulas), ``mfu`` against
+    the host-clock headline (stream) and ``mfu_device`` against the device
+    ms, both at the card's peak for the precision (``device_peak_flops``);
   * a Waymo-density pass on ``WAYMO_CONFIG`` (random weights, seed 0):
     the frames of ``--data`` (else the seeded ``waymo_base_frame``)
     densified to 180 000 points by jittered
@@ -257,7 +260,9 @@ def run(args) -> dict:
     peak = device_peak_flops(cfg.precision)
     prof = capture(engine, frames[0], iters=args.trace_iters,
                    device=engine.device)
-    total = prof.flops.total
+    stages = capture(engine.eager, frames[0], iters=args.trace_iters,
+                     device=engine.device)
+    total = stages.flops.total
     device_ms = prof.device_ms_per_iter
 
     wcfg = dataclasses.replace(WAYMO_CONFIG, precision=cfg.precision)
@@ -269,6 +274,9 @@ def run(args) -> dict:
     waymo = stream_ms(wengine, wframes, max(iters // 2, 2))
     wprof = capture(wengine, wframes[0], iters=max(args.trace_iters // 2, 2),
                     device=wengine.device)
+    wstages = capture(wengine.eager, wframes[0],
+                      iters=max(args.trace_iters // 2, 2),
+                      device=wengine.device)
 
     gates = parity_gates(cfg.precision, engine.device)
 
@@ -290,12 +298,12 @@ def run(args) -> dict:
         "device_idle_share": prof.idle_share,
         "host_wait_ms_per_frame": prof.host_wait_ms_per_iter,
         "host_launch_ms_per_frame": prof.host_launch_ms_per_iter,
-        "stages_device_ms": prof.stage_ms(),
-        "stage_mfu": prof.stage_table(peak),
+        "stages_device_ms": stages.stage_ms(),
+        "stage_mfu": stages.stage_table(peak),
         "top_ops_device_ms": [{"name": r["name"][:160], "ms": r["ms"],
                                "calls": r["calls"]} for r in prof.top_ops(5)],
         "flops_g": total / 1e9,
-        "kernel_flops_g": {k: v / 1e9 for k, v in prof.flops.kernels.items()},
+        "kernel_flops_g": {k: v / 1e9 for k, v in stages.flops.kernels.items()},
         "peak_flops": peak,
         "mfu": mfu(stream),
         "mfu_device": mfu(device_ms),
@@ -306,7 +314,9 @@ def run(args) -> dict:
         "waymo_device_ms": wprof.device_ms_per_iter,
         "waymo_device_idle_share": wprof.idle_share,
         "waymo_trace_frames_busy_ms": wprof.window_busy_ms(),
-        "waymo_stages": wprof.stage_table(peak),
+        "waymo_stages": wstages.stage_table(peak),
+        "capture_seconds": engine.capture_seconds,
+        "graph_pool_mb": engine.graph_pool_bytes / 2**20,
         **gates,
         "device": device,
         "metric": "ms/frame end-to-end",

@@ -16,7 +16,10 @@ Launch counts: each kernel wrapper calls ``count(name, flops)`` exactly
 where it launches its kernel, and nowhere else, so a run can show that the
 main path went through the kernels (``reset_counts`` / ``counts``).  Inside
 ``flop_tally`` the same call also adds the launch's FLOPs, from the formula
-beside the wrapper, for runtime/profiler.py's counts.
+beside the wrapper, for runtime/profiler.py's counts.  A CUDA graph capture
+launches nothing: ``captured`` takes the launches its wrappers counted back
+out of the counts and keeps them, and ``replayed`` adds them once for each
+replay of the graph, which launches them (runtime/compile.py:Engine).
 
 A test may build and load a variant of a kernel with extra ``-D`` defines
 (``lib(name, defines={"B4_SLOTS": 4})``) to drive a code path that the main
@@ -54,6 +57,8 @@ SPECS = {
                           _I, _I, _I, _F, _P]),
     "rotated_overlap": ("rotated_overlap.cu", "dsvt_rotated_overlap",
                         [_P, _I, _P, _I, _P, _P]),
+    "nms_peel": ("nms_peel.cu", "dsvt_nms_peel",
+                 [_P, _I, _P, _P, _P, _P, _P]),
 }
 
 ARCH = "sm_90a"
@@ -75,6 +80,27 @@ def count(name: str, flops: Optional[Callable[[], float]] = None) -> None:
         n = float(flops())
         for tally in _flop_tallies:
             tally[name] = tally.get(name, 0.0) + n
+
+
+@contextlib.contextmanager
+def captured() -> Iterator[Dict[str, int]]:
+    """Around a CUDA graph capture: the launches counted inside the block,
+    as a dict filled when the block ends, are taken back out of the counts
+    (the capture records them into the graph and runs none)."""
+    before = counts()
+    launches: Dict[str, int] = {}
+    try:
+        yield launches
+    finally:
+        for name in _counts:
+            launches[name] = _counts[name] - before[name]
+            _counts[name] = before[name]
+
+
+def replayed(launches: Dict[str, int]) -> None:
+    """Count one replay of a graph that captured ``launches``."""
+    for name, n in launches.items():
+        _counts[name] += n
 
 
 def reset_counts() -> None:

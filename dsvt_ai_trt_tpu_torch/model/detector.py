@@ -61,8 +61,9 @@ def _inputs(params: Dict, points, num_points, device):
         raise ValueError(f"parameters are on {pdev}, forward runs on {device}:"
                          " carry them with weights.from_jax_params(p, device)")
     points = torch.as_tensor(points, dtype=torch.float32).to(pdev)
-    num = torch.as_tensor(num_points).to(pdev)
-    return points, num
+    if isinstance(num_points, torch.Tensor):
+        return points, num_points.to(pdev)
+    return points, int(num_points)     # a scalar operand: nothing to copy
 
 
 def _partitions(pillars: Pillars, cfg: DSVTConfig):

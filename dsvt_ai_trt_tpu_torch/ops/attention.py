@@ -58,9 +58,10 @@ def set_attention_qkv(qkv_p: torch.Tensor, inds: torch.Tensor,
     k = qkv[..., C:2 * C].reshape(S, K, H, D)
     v = qkv[..., 2 * C:].reshape(S, K, H, D)
 
-    # 1/sqrt(D) rounded to the gather type, as the JAX path scales q
-    scale = (torch.tensor(1.0, dtype=gt)
-             / torch.sqrt(torch.tensor(float(D), dtype=gt))).to(q.device)
+    # 1/sqrt(D) rounded to the gather type, as the JAX path scales q; a
+    # CPU 0-dim tensor is a scalar operand on the card, copied nowhere
+    scale = (torch.full((), 1.0, dtype=gt)
+             / torch.sqrt(torch.full((), float(D), dtype=gt)))
     logits = torch.einsum("sqhd,skhd->shqk", (q * scale).float(), k.float())
     logits = logits + key_mask[:, None, None, :]
     attn = torch.softmax(logits, dim=-1)

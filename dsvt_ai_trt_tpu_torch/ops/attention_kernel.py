@@ -33,7 +33,7 @@ def _scale(head_dim: int) -> float:
 
 def _count_tensor(set_count, S: int, device) -> torch.Tensor:
     if set_count is None:
-        return torch.tensor([S], dtype=torch.int32, device=device)
+        return torch.full((1,), S, dtype=torch.int32, device=device)
     return torch.as_tensor(set_count, device=device).to(torch.int32).reshape(1)
 
 

@@ -14,7 +14,6 @@ from __future__ import annotations
 
 from typing import Dict, NamedTuple
 
-import numpy as np
 import torch
 
 from ..config import DSVTConfig, head_branches
@@ -37,10 +36,14 @@ def _top_k(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-# im2col of the 3x3 hidden positions over the 5x5 patch: tap p at hidden
-# offset (a, b) reads flat slot (a + p//3)*5 + (b + p%3)
-_SEL = np.asarray([[[(a + p // 3) * 5 + (b + p % 3) for p in range(9)]
-                    for b in range(3)] for a in range(3)])
+def _im2col_slots(device) -> torch.Tensor:
+    """[3, 3, 9] im2col of the 3x3 hidden positions over the 5x5 patch:
+    tap p at hidden offset (a, b) reads flat slot (a + p//3)*5 + (b + p%3).
+    Made on the device by factories, so no host data is copied."""
+    r3 = torch.arange(3, device=device)
+    p = torch.arange(9, device=device)
+    return (r3[:, None, None] * 5 + r3[None, :, None]
+            + ((p // 3) * 5 + p % 3)[None, None, :])
 
 
 def decode_lazy_branches(shared: torch.Tensor, inds: torch.Tensor,
@@ -67,7 +70,7 @@ def decode_lazy_branches(shared: torch.Tensor, inds: torch.Tensor,
     inb = (py >= 0) & (py < H) & (px >= 0) & (px < W)   # off-map reads are 0
     patch = shared[py.clamp(0, H - 1), px.clamp(0, W - 1)]          # [K,25,C]
     patch = torch.where(inb[..., None], patch, torch.zeros_like(patch))
-    p2 = patch.to(dt).float()[:, torch.as_tensor(_SEL, device=dev)]  # [K,3,3,9,C]
+    p2 = patch.to(dt).float()[:, _im2col_slots(dev)]              # [K,3,3,9,C]
 
     names = [n for n, _ in branches if n != "hm"]
     # OIHW [64, C, 3, 3] -> [9, C, 64] (tap p = dy*3 + dx)

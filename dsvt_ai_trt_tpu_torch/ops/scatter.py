@@ -21,13 +21,12 @@ def scatter_max(point_feats: torch.Tensor, point_pillar: torch.Tensor,
     are zero-filled, as are invalid rows of the broadcast.
     """
     C = point_feats.shape[1]
-    neg = torch.tensor(_NEG, dtype=point_feats.dtype, device=point_feats.device)
-    guarded = torch.where(point_valid[:, None], point_feats, neg)
+    guarded = torch.where(point_valid[:, None], point_feats, _NEG)
     table = torch.full((num_pillars + 1, C), _NEG, dtype=point_feats.dtype,
                        device=point_feats.device)
     table = table.scatter_reduce(0, point_pillar[:, None].expand(-1, C),
                                  guarded, reduce="amax", include_self=True)
-    table = torch.where(table > neg, table, torch.zeros_like(table))
+    table = torch.where(table > _NEG, table, torch.zeros_like(table))
     point_max = torch.where(point_valid[:, None], table[point_pillar],
                             torch.zeros_like(point_feats))
     return point_max, table[:num_pillars]

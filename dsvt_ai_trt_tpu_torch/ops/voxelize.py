@@ -29,11 +29,14 @@ import torch
 from ..config import DSVTConfig
 
 
-def cell_edges(vmin: float, vsize: float, n: int) -> np.ndarray:
-    """fp32 cell-edge table: edge[i] is the float64-exact i-th grid line
-    rounded to fp32."""
-    return (np.float64(vmin) + np.float64(vsize) * np.arange(n + 1)).astype(
-        np.float32)
+def cell_edges(vmin: float, vsize: float, n: int, device) -> torch.Tensor:
+    """fp32 cell-edge table on ``device``: edge[i] is the i-th grid line
+    vmin + i * vsize, its product and sum in float64 (each rounded once, as
+    the JAX package's NumPy table), rounded to fp32.  Made by factories on
+    the device, so no host data is copied and a CUDA graph can capture
+    it."""
+    grid = torch.arange(n + 1, dtype=torch.float64, device=device)
+    return (grid * float(vsize) + float(vmin)).float()
 
 
 def _edge_bin(v: torch.Tensor, edges: torch.Tensor, vmin: float, vsize: float,
@@ -87,7 +90,8 @@ def _shift_up(v: torch.Tensor, s: int) -> torch.Tensor:
 
 def voxelize(points: torch.Tensor, num_points, cfg: DSVTConfig) -> Pillars:
     """points: [max_points, 4] float32 (zero padded); num_points: int or []
-    tensor.  Runs on the device of ``points``."""
+    tensor on the device of ``points``, which it runs on.  Nothing is read
+    back to the host and nothing is copied from it."""
     dev = points.device
     N = points.shape[0]
     P1 = cfg.max_kept_points
@@ -104,10 +108,12 @@ def voxelize(points: torch.Tensor, num_points, cfg: DSVTConfig) -> Pillars:
     # range filter: [min, max) on every axis
     in_range = ((x >= xmin) & (x < xmax) & (y >= ymin) & (y < ymax)
                 & (z >= zmin) & (z < zmax))
-    valid = in_range & (idx < torch.as_tensor(num_points, device=dev))
+    if not isinstance(num_points, torch.Tensor):
+        num_points = int(num_points)
+    valid = in_range & (idx < num_points)
 
-    edges_x = torch.from_numpy(cell_edges(xmin, vx, gx)).to(dev)
-    edges_y = torch.from_numpy(cell_edges(ymin, vy, gy)).to(dev)
+    edges_x = cell_edges(xmin, vx, gx, dev)
+    edges_y = cell_edges(ymin, vy, gy, dev)
     ix = _edge_bin(x, edges_x, xmin, vx, gx)
     iy = _edge_bin(y, edges_y, ymin, vy, gy)
     sentinel = gx * gy
@@ -139,7 +145,7 @@ def voxelize(points: torch.Tensor, num_points, cfg: DSVTConfig) -> Pillars:
     sx, sy, sz, sw = pay[:, 0], pay[:, 1], pay[:, 2], pay[:, 3]
     sbx = s_cell % gx
     sby = s_cell // gx
-    edges_z = torch.from_numpy(cell_edges(zmin, vz, gz)).to(dev)
+    edges_z = cell_edges(zmin, vz, gz, dev)
     sbz = _edge_bin(sz, edges_z, zmin, vz, gz)
     s_valid = s_cell != sentinel
 

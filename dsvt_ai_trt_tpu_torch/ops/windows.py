@@ -23,7 +23,7 @@ import torch
 
 from ..config import DSVTConfig, WindowSpec
 
-NEG_MASK = -3.4028235e38
+NEG_MASK = torch.finfo(torch.float32).min   # -3.4028235e38, exact in f32
 
 
 class WindowPartition(NamedTuple):
@@ -123,7 +123,9 @@ def set_partition(part: WindowPartition, pillar_valid: torch.Tensor,
     # set allocation: ceil(N/K) sets per window, window-major
     sets_per_win = (win_size[:W] + (K - 1)) // K
     set_base = torch.cat([pos.new_zeros((1,)), torch.cumsum(sets_per_win, 0)])
-    set_count = torch.clamp(set_base[torch.clamp(win_count, max=W)], max=S)
+    # a one-element index: a 0-dim tensor index would be read on the host
+    set_count = torch.clamp(
+        set_base[torch.clamp(win_count, max=W).reshape(1)][0], max=S)
 
     # window rank of each set: +1 at every window's base, then cumsum.  The
     # index is clamped to S, inside the [S + 1] buffer, so nothing drops.
@@ -156,9 +158,8 @@ def set_partition(part: WindowPartition, pillar_valid: torch.Tensor,
     # duplicate-slot mask; invalid sets are all dead
     dup = torch.cat([torch.zeros((S, 1), dtype=torch.bool, device=dev),
                      local[:, 1:] == local[:, :-1]], dim=1)
-    key_mask = torch.where(dup | ~set_valid[:, None],
-                           torch.tensor(NEG_MASK, device=dev),
-                           torch.tensor(0.0, device=dev))
+    key_mask = torch.zeros((S, K), device=dev).masked_fill(
+        dup | ~set_valid[:, None], NEG_MASK)
 
     # canonical inverse: pillar with in-window rank r maps to flat slot
     # ceil(r * K*n_sets / N)

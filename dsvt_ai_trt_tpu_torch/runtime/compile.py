@@ -2,10 +2,9 @@
 
 The reference serializes a TensorRT engine and deserializes it to infer
 (dsvt-ai-trt.cpp:1764-1822); the JAX package serializes its jitted forward
-with ``jax.export``, stamped with its config.  Here the forward pass is
-eager PyTorch, and what a build makes is the hand-written kernels: the
-artifact is the stamp and the four kernel libraries ``nvcc`` built from
-``csrc/``, laid out as
+with ``jax.export``, stamped with its config.  Here what a build makes is
+the hand-written kernels: the artifact is the stamp and the kernel
+libraries ``nvcc`` built from ``csrc/``, laid out as
 
     b"DSVTCUDA" | stamp length (4 bytes, little-endian) | stamp JSON |
     the libraries, one after another, in the stamp's order and sizes
@@ -18,12 +17,19 @@ with no ``nvcc`` installs the libraries under their digest, so the kernels
 run without a build.  A build on the CPU (``device="cpu"``) writes the
 stamp alone.
 
-Not here, on purpose: ``torch.export`` and a captured CUDA graph.
-``forward`` has data-dependent shapes and host syncs (``ops/bev.py``'s
-boolean index, ``ops/nms.py``'s round test), ``torch.export`` cannot see
-inside the ``ctypes`` kernels, and a graph is a performance change.  Nor
-does the JAX package's ``enable_persistent_cache`` have a counterpart:
-``kernels.py`` already keeps each build under its digest.
+The compiled program is a CUDA graph, the counterpart of the JAX
+``Engine``'s jitted forward (XLA itself lowers jitted programs on GPUs to
+CUDA graphs): ``Engine.warmup`` on the card captures one whole
+``model.detector.forward`` over static input buffers, weights included, and
+every call after it copies its frame into those buffers and replays the
+graph, one launch a frame.  ``forward`` has static shapes and reads nothing
+back to the host (NMS's rounds run inside kernel nms_peel), which is what
+capture requires.  The graph is made when the engine warms up, never
+stored: a ``jax.export`` blob is compiled on its device when loaded too.
+Not here, on purpose: ``torch.export``, which cannot see inside the
+``ctypes`` kernels.  Nor does the JAX package's
+``enable_persistent_cache`` have a counterpart: ``kernels.py`` already
+keeps each build under its digest.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import time
 from typing import Optional
 
 import numpy as np
@@ -145,7 +152,22 @@ class Engine:
     ``with_nms`` and its kernels installed (``load_engine``); without one
     the kernels build from the sources on first use.  Raises when
     ``device`` is "cuda" and no card is present.
+
+    On the card a call replays one CUDA graph of the whole forward (module
+    docstring), captured by ``warmup``, which the first call runs if the
+    caller did not.  The call copies ``points`` ([max_points, 4]: NumPy,
+    pinned or on the card) and ``num_points`` (int or tensor) into the
+    graph's static input buffers in stream order, replays the graph, and
+    returns Detections whose tensors are copies of the graph's outputs, so
+    the next replay leaves an earlier call's result as it was.  No host
+    read: the copies out are enqueued after the replay.  A failed capture
+    or replay raises; nothing falls back to the eager forward on the card.
+    Launch counts (``kernels.counts``) rise per replay by what the capture
+    recorded.  ``eager`` runs the same forward op by op, and is what runs
+    on the CPU, where the caller asked for it.
     """
+
+    WARM_RUNS = 2   # eager frames on a side stream before the capture
 
     def __init__(self, params, cfg: DSVTConfig, device="cuda",
                  with_nms: bool = True, engine_path: Optional[str] = None):
@@ -164,14 +186,84 @@ class Engine:
             self.params = params
         else:
             self.params = from_jax_params(params, self.device)
+        self._graph = None
+        self.graph_launches = {}   # kernel launches one replay makes
+        self.capture_seconds = None
+        self.graph_pool_bytes = None
 
-    def __call__(self, points, num_points) -> Detections:
+    def eager(self, points, num_points) -> Detections:
+        """The forward op by op, on this engine's weights and device."""
         return forward(self.params, points, num_points, self.cfg,
                        self.with_nms, device=self.device)
 
+    def __call__(self, points, num_points) -> Detections:
+        if self.device.type != "cuda":
+            return self.eager(points, num_points)
+        if self._graph is None:
+            self.warmup()
+        self._load(points, num_points)
+        self._graph.replay()
+        kernels.replayed(self.graph_launches)
+        out = self._out
+        return Detections(boxes=out.boxes.clone(), count=out.count.clone(),
+                          occupancy=out.occupancy.clone())
+
+    def _load(self, points, num_points) -> None:
+        """Copy a frame into the static input buffers, in stream order."""
+        if not isinstance(points, torch.Tensor):
+            points = torch.from_numpy(np.asarray(points, dtype=np.float32))
+        if tuple(points.shape) != tuple(self._points.shape):
+            raise ValueError(f"the engine's graph takes points "
+                             f"{tuple(self._points.shape)} (max_points, 4), "
+                             f"got {tuple(points.shape)}")
+        self._points.copy_(points, non_blocking=True)
+        if isinstance(num_points, torch.Tensor):
+            self._num.copy_(num_points.reshape(()), non_blocking=True)
+        else:
+            self._num.fill_(int(num_points))
+
     def warmup(self) -> "Engine":
-        """One empty frame, waited for: builds or loads the kernels and
-        warms the libraries off the clock."""
-        dets = self(np.zeros((self.cfg.max_points, 4), np.float32), 0)
-        dets.count.cpu()
+        """Make the engine ready and wait for it, off the clock.  On the
+        CPU: one empty frame.  On the card, once: build and load every
+        kernel library, run ``WARM_RUNS`` eager frames on a side stream
+        (lazy initialisations and the allocator settle there; the kernels'
+        first-launch attribute calls run), capture ``forward`` over the
+        static buffers into one CUDA graph, and replay it on an empty
+        frame.  Recorded: ``capture_seconds`` (all of that, after the
+        build) and ``graph_pool_bytes``, the device memory the capture
+        reserved: the graph's private pool, which holds every intermediate
+        of a frame."""
+        if self.device.type != "cuda":
+            self(np.zeros((self.cfg.max_points, 4), np.float32), 0)
+            return self
+        if self._graph is not None:
+            return self
+        kernels.build_all()
+        for name in kernels.SPECS:
+            kernels.lib(name)
+        t0 = time.perf_counter()
+        self._points = torch.zeros((self.cfg.max_points, 4),
+                                   dtype=torch.float32, device=self.device)
+        self._num = torch.zeros((), dtype=torch.int32, device=self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for _ in range(self.WARM_RUNS):
+                self.eager(self._points, self._num)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved(self.device)
+        graph = torch.cuda.CUDAGraph()
+        with kernels.captured() as launches, torch.cuda.graph(graph):
+            out = self.eager(self._points, self._num)
+        self.graph_pool_bytes = torch.cuda.memory_reserved(self.device) \
+            - before
+        self._graph, self._out = graph, out
+        self.graph_launches = dict(launches)
+        self(self._points, 0).count.cpu()   # an empty frame, waited for
+        self.capture_seconds = time.perf_counter() - t0
+        log.info("captured the forward in %.2f s: %d MB in the graph's pool, "
+                 "launches a replay %s", self.capture_seconds,
+                 self.graph_pool_bytes >> 20, self.graph_launches)
         return self

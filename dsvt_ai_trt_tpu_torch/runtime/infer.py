@@ -6,18 +6,28 @@ reference-format result txt per frame (first line = seconds), warning when
 a frame's occupancy reaches a static cap (points, pillars or sets were then
 dropped, as the reference does).  It is software-pipelined: frames are
 staged in pageable host memory; dispatching one copies it into one of
-``pipeline_depth + 1`` reusable pinned buffers and from there to the card
-without blocking, runs the engine and starts non-blocking copies of boxes,
-count and occupancy into pinned buffers, then records a CUDA event;
+``pipeline_depth + 1`` reusable pinned buffers, hands that buffer to the
+engine, which copies it into its graph's static input buffer without
+blocking and replays the graph, then starts non-blocking copies of boxes,
+count and occupancy into pinned buffers and records a CUDA event;
 ``finish`` waits on that event.  Up to ``pipeline_depth`` frames are in
 flight, so the pinned memory held does not grow with the frame count.
-``forward`` itself blocks the host inside a frame (``ops/bev.py``'s boolean
-index, every NMS round's test, ``ops/postprocess.py``'s index table), so
-the pipeline hides less here than on the JAX package's TPU.
+Nothing in a frame blocks the host: the forward reads nothing back
+(runtime/compile.py), so the host runs ahead by ``pipeline_depth`` frames.
+
+Why the reuse of buffers is safe with frames in flight: everything of a
+frame is enqueued on one stream, in the order input copy, replay, copies
+of the outputs, copies to the host, event.  The static input buffer is
+overwritten by the next frame's copy, which the stream runs after this
+frame's replay has read it; the graph's static outputs are overwritten by
+the next replay, which the stream runs after this frame's copies of them
+(``Engine.__call__`` returns those copies); and a pinned frame buffer is
+refilled by the host only after the event recorded behind its frame's
+replay has completed.
 
 ``run_frames_scan`` is the throughput mode (``model.detector.forward_scan``
-over groups of ``batch`` frames) and ``benchmark`` the steady-state ms per
-frame of the pipelined loop.  ``Engine`` lives in runtime/compile.py and is
+over groups of ``batch`` frames, eager: no graph yet) and ``benchmark``
+the steady-state ms per frame of the pipelined loop.  ``Engine`` lives in runtime/compile.py and is
 re-exported here.
 """
 
@@ -101,9 +111,9 @@ def _name(path: str) -> str:
 
 class _PinnedRing:
     """``slots`` page-locked frame buffers used in turn for the copies to
-    the card.  A buffer is refilled only once the event recorded after its
-    last copy has completed, so a non-blocking copy never reads a buffer
-    being overwritten."""
+    the card.  ``fill`` refills a buffer only once the event that ``used``
+    recorded after its last frame's work has completed, so a non-blocking
+    copy never reads a buffer being overwritten."""
 
     def __init__(self, slots: int, shape):
         self.bufs = [torch.empty(shape, dtype=torch.float32, pin_memory=True)
@@ -111,15 +121,20 @@ class _PinnedRing:
         self.events: List[Optional[torch.cuda.Event]] = [None] * slots
         self.next = 0
 
-    def to(self, pts: torch.Tensor, device: torch.device) -> torch.Tensor:
-        i, self.next = self.next, (self.next + 1) % len(self.bufs)
+    def fill(self, pts: torch.Tensor) -> torch.Tensor:
+        """The next buffer, holding ``pts``."""
+        i = self.next
         if self.events[i] is not None:
             self.events[i].synchronize()
         self.bufs[i].copy_(pts)
-        out = self.bufs[i].to(device, non_blocking=True)
+        return self.bufs[i]
+
+    def used(self) -> None:
+        """Mark the buffer ``fill`` returned as read by the work enqueued
+        so far, and move to the next."""
+        i, self.next = self.next, (self.next + 1) % len(self.bufs)
         self.events[i] = torch.cuda.Event()
         self.events[i].record()
-        return out
 
 
 class _InFlight:
@@ -164,8 +179,11 @@ def run_frames(engine: Engine, paths: List[str], out_dir: Optional[str] = None,
     t_prev = time.perf_counter()
 
     def dispatch(slot, path, pts, n):
-        pts = ring.to(pts, engine.device) if ring else pts.to(engine.device)
-        return slot, path, _InFlight(engine(pts, n), engine.device)
+        if ring is None:
+            return slot, path, _InFlight(engine(pts, n), engine.device)
+        dets = engine(ring.fill(pts), n)
+        ring.used()
+        return slot, path, _InFlight(dets, engine.device)
 
     def finish(slot, path, inflight):
         nonlocal t_prev
@@ -200,7 +218,8 @@ def run_frames_scan(params, cfg: DSVTConfig, paths: List[str],
     staged = _stage(paths, cfg, results)
     if not staged:
         return results
-    engine.warmup()
+    _, _, pts0, n0 = staged[0]
+    engine.eager(pts0, n0).count.cpu()   # off the clock: builds the kernels
     for lo in range(0, len(staged), batch):
         group = staged[lo:lo + batch]
         padded = group + [group[-1]] * (batch - len(group))

@@ -1,4 +1,5 @@
-"""The four CUDA kernels against their plain versions, on the card.
+"""The five CUDA kernels against their plain versions, and the engine's
+CUDA graph against the eager forward, on the card.
 
 Marked ``cuda``; each test skips (from a fixture) where no card is present.
 Run on a machine with a card, without the JAX-loading conftest:
@@ -12,18 +13,24 @@ flip of x1 or of the GELU output before the next product); B4 bit-exact on
 the strict upper triangle: it builds the corners with ``box_corners``'
 rounding (``cosf``/``sinf``, as ``torch.cos``/``torch.sin`` on the card)
 and rounds every product, difference, quotient and sum of the clip on its
-own, with no fused multiply-adds, as the plain version's PyTorch ops do.
+own, with no fused multiply-adds, as the plain version's PyTorch ops do;
+nms_peel bit-exact (kept set and count: boolean algebra).  The engine's
+replays bit-exact against ``Engine.eager`` at a tiny configuration: the
+same kernels on the same inputs.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from dsvt_ai_trt_tpu_torch import kernels
+from dsvt_ai_trt_tpu_torch import kernels, weights
+from dsvt_ai_trt_tpu_torch.config import DSVTConfig, WindowSpec
 from dsvt_ai_trt_tpu_torch.ops import attention_kernel as ak
 from dsvt_ai_trt_tpu_torch.ops import encoder_kernel as ek
 from dsvt_ai_trt_tpu_torch.ops import nms_kernel as nk
+from dsvt_ai_trt_tpu_torch.ops import nms_peel as npl
 from dsvt_ai_trt_tpu_torch.ops import segment
+from dsvt_ai_trt_tpu_torch.runtime.compile import Engine
 
 pytestmark = pytest.mark.cuda
 NEG = -3.4028235e38
@@ -280,3 +287,86 @@ def test_rotated_overlap_slow_path(dev):
                      torch.cuda.current_stream().cuda_stream) == 0
         _upper_equal(out, ref)
         assert (int(slow) > 50) if defines else (int(slow) == 0)
+
+
+def _peel_equal(sup, count):
+    before = kernels.counts()["nms_peel"]
+    kept, n = npl.nms_peel(sup, count)
+    assert kernels.counts()["nms_peel"] == before + 1
+    ref_kept, ref_n = npl.nms_peel_plain(sup, count)
+    assert torch.equal(kept, ref_kept) and torch.equal(n, ref_n)
+    return int(n)
+
+
+@pytest.mark.parametrize("K", [1, 37, 500, 1024])
+@pytest.mark.parametrize("density", [0.01, 0.2])
+def test_nms_peel_random(dev, K, density):
+    gen = torch.Generator(device=dev).manual_seed(K)
+    for count in (K, K // 2, 0):
+        sup = (torch.rand(K, K, device=dev, generator=gen) < density).triu(1)
+        sup &= (torch.arange(K, device=dev) < count)[:, None]
+        _peel_equal(sup, torch.tensor(count, device=dev))
+
+
+@pytest.mark.parametrize("K", [500, 1024])
+def test_nms_peel_deep_chain(dev, K):
+    """Each box suppresses the next: K / 2 rounds, every other box kept."""
+    sup = torch.zeros(K, K, dtype=torch.bool, device=dev)
+    i = torch.arange(K - 1, device=dev)
+    sup[i, i + 1] = True
+    assert _peel_equal(sup, K) == K // 2
+
+
+def test_nms_peel_refuses_more_than_1024_boxes(dev):
+    with pytest.raises(ValueError, match="K <= 1024"):
+        npl.nms_peel(torch.zeros(1025, 1025, dtype=torch.bool, device=dev), 5)
+
+
+def _tiny_config(precision):
+    """The test suite's tiny configuration (tests/conftest.py), built here:
+    this file runs without the JAX conftest."""
+    return DSVTConfig(
+        max_points=2048, max_kept_points=1536, max_pillars=512,
+        max_points_per_pillar=8, voxel_size=(0.32, 0.32, 8.0),
+        pc_range_min=(-7.68, -7.68, -5.0), pc_range_max=(7.68, 7.68, 3.0),
+        grid_size=(48, 48, 1), pfn_channels=(16, 32), sparse_shape=(48, 48, 1),
+        window_specs=(WindowSpec((12, 12, 1), (0, 0, 0)),
+                      WindowSpec((24, 24, 1), (6, 6, 0))),
+        max_voxels_per_window=576, max_sets=128, set_size=12, num_blocks=2,
+        num_heads=4, d_model=32, ffn_dim=64, num_classes=3, top_k=64,
+        precision=precision)
+
+
+def _cloud(cfg, n, seed):
+    rng = np.random.default_rng(seed)
+    lo = np.array(cfg.pc_range_min, np.float32)
+    hi = np.array(cfg.pc_range_max, np.float32)
+    pts = np.zeros((cfg.max_points, 4), np.float32)
+    pts[:n, :3] = rng.uniform(lo - 0.5, hi + 0.5, (n, 3))
+    pts[:n, 3] = rng.uniform(0, 1, n)
+    return pts, n
+
+
+@pytest.mark.parametrize("with_nms", [True, False])
+@pytest.mark.parametrize("precision", ["bf16", "fp32"])
+def test_graph_replay_equals_eager(dev, precision, with_nms):
+    cfg = _tiny_config(precision)
+    engine = Engine(weights.random_params(cfg, 0), cfg,
+                    with_nms=with_nms).warmup()
+    frames = [_cloud(cfg, n, seed) for n, seed in ((1500, 1), (600, 2))]
+    fused = 4 if precision == "bf16" else 0   # 2 blocks x 2 encoders
+    want = {"segment_max": 2, "set_attention": fused,
+            "encoder_epilogue": fused, "rotated_overlap": int(with_nms),
+            "nms_peel": int(with_nms)}
+    assert engine.graph_launches == want
+    kernels.reset_counts()
+    replays = [engine(pts, n) for pts, n in frames]   # no wait between
+    assert kernels.counts() == {k: 2 * v for k, v in want.items()}
+    for (pts, n), got in zip(frames, replays):
+        ref = engine.eager(torch.from_numpy(pts).to(dev),
+                           torch.tensor(n, device=dev))
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+    assert not torch.equal(replays[0].boxes, replays[1].boxes)
+    with pytest.raises(ValueError, match="max_points"):
+        engine(np.zeros((10, 4), np.float32), 3)

@@ -197,7 +197,7 @@ def _port(anchor, name, with_nms):
                             anchor["device"], with_nms)
     if anchor["device"] == "cuda":     # the port's kernels ran
         want = {"segment_max": 2, "set_attention": 0, "encoder_epilogue": 0,
-                "rotated_overlap": int(with_nms)}
+                "rotated_overlap": int(with_nms), "nms_peel": int(with_nms)}
         assert kernels.counts() == want, kernels.counts()
     assert_caps_free(anchor["oracle"], anchor["cfg"], pts, n, occ, name)
     return boxes
