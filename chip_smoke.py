@@ -39,11 +39,18 @@ Phases (any failure exits non-zero):
      ``WAYMO_CONFIG`` (the densified Waymo frame): the capture holds
      2/8/8/1/1 launches (no B4 or nms_peel without NMS), and replays equal
      the eager forward bit for bit (boxes, count, occupancy); two engines'
-     replays interleaved with no wait keep their own results; capture
-     seconds and the graph pool's MB; sync and stream ms a frame, eager
-     against graph (medians of 5 alternated samples), the host's ms to
-     enqueue one frame, and a traced frame of each (device ms, span, idle
-     share, host ms in launch calls and waiting);
+     replays interleaved with no wait keep their own results; the scan
+     graph (``Engine(..., batch=10)``, ``run_frames_scan``'s and the
+     bench's ``batch``) on the three frames cycled to 10: its capture and
+     one replay count 10 x 2/8/8/1/1 (counts set to 0 just before the
+     replay, read just after), and each of its frames equals the engine's
+     per-frame replay bit for bit; ms a frame through it, through the
+     per-frame graph and through eager ``forward_batch`` (medians of 5
+     alternated samples); capture seconds and the graph pool's MB; sync and
+     stream ms a frame, eager against graph (medians of 5 alternated
+     samples), the host's ms to enqueue one frame, and a traced frame of
+     each (device ms, span, idle share, host ms in launch calls and
+     waiting);
   6. golden: the tiny configuration's fp32 boxes on the card against
      ``tests/goldens/tiny_seed0.json``;
   7. parity_suite: ``parity.run_suite``, the four rows {bf16, mixed} x
@@ -84,13 +91,21 @@ Phases (any failure exits non-zero):
      kernel launched: training runs the plain paths), ms per step by CUDA
      events and peak memory with and without ``remat``, one step traced
      (``runtime/trace.capture``: device ms, idle share, FLOPs, MFU at 67
-     TFLOP/s fp32); then the trained weights, refolded, through the bf16
+     TFLOP/s fp32); the compiled step (``check_compiled_step``,
+     ``CompiledTrainStep``: the whole step as one CUDA graph): an eager
+     step under ``set_sync_debug_mode("error")`` (no synchronisation), 6
+     replays against 6 eager steps from the same weights (loss within 1e-5
+     relative, every leaf under ``step_gate``, no kernel launched), ms a
+     step eager against graph (alternated), a traced step of each (device
+     ms, span, idle share, the index backward's ms), the capture's seconds
+     and pool; then the trained weights, refolded, through the bf16
      ``Engine`` on the three frames (launch counts 2/8/8/1/1 per frame, every
      top-k box equal at 1e-4 to those of the weights exported as .wts and
      reloaded);
-     ``cli train`` for 1 + 1 steps with ``--resume`` and ``--export-wts``;
-     ``train_run.main`` for 3 steps with 2 eval scenes (reloaded recall
-     equals trained recall);
+     ``cli train`` for 1 + 1 steps with ``--resume`` and ``--export-wts``
+     and ``train_run.main`` for 3 steps with 2 eval scenes (reloaded
+     recall equals trained recall), each step a replay of a captured
+     step (``graph_steps`` records them);
  13. multi (``check_multi``): the card's compute mode is printed, and an
      exclusive mode fails the phase; ``parallel/dryrun.py:card_modes`` runs
      in two spawned processes joined in a gloo group on cuda:0 (gloo
@@ -139,6 +154,7 @@ Needs one CUDA card; exits non-zero without one, and without the package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -155,6 +171,8 @@ F32_FLOPS = 67e12                  # f32 outside the tensor cores
 PER_FRAME = {"segment_max": 2, "set_attention": 8, "encoder_epilogue": 8,
              "rotated_overlap": 1, "nms_peel": 1}
 NMS_KERNELS = ("rotated_overlap", "nms_peel")   # none without NMS
+SCAN_BATCH = 10                    # frames in one scan graph (bench.BATCH)
+TRAIN_STEPS = 6                    # graph replays held against eager steps
 SYMBOLS = {                        # the __global__ function(s) of each kernel
     "segment_max": "segment_max_kernel",
     "set_attention": "set_attention_kernel",
@@ -921,6 +939,60 @@ def check_graph(engine, frames):
           "graph: two frames gave the same boxes")
     out["interleaved_replays"] = len(calls)
 
+    # the scan graph (run_frames_scan, the bench's batch): SCAN_BATCH frames
+    # in one capture, each bit-equal to the engine's per-frame replay; a
+    # replay counts SCAN_BATCH x 2/8/8/1/1, with the counts set to 0 just
+    # before and read just after
+    from dsvt_ai_trt_tpu_torch import kernels
+    from dsvt_ai_trt_tpu_torch.model.detector import forward_batch
+    group = [names[i % len(names)] for i in range(SCAN_BATCH)]
+    points = torch.stack([dev[g][0] for g in group])
+    nums = torch.stack([dev[g][1] for g in group])
+    scan = Engine(engine.params, engine.cfg, batch=SCAN_BATCH).warmup()
+    want = {k: SCAN_BATCH * v for k, v in PER_FRAME.items()}
+    check(scan.graph_launches == want, f"scan graph: the capture holds "
+          f"{scan.graph_launches}, expected {want}")
+    kernels.reset_counts()
+    got = scan(points, nums)
+    torch.cuda.synchronize()
+    counts = kernels.counts()
+    check(counts == want, f"scan graph: a replay counted {counts}, "
+          f"expected {want}")
+    for i, g in enumerate(group):
+        check(all(torch.equal(a[i], b) for a, b in zip(got, engine(*dev[g]))),
+              f"scan graph: frame {i} ({g}) differs from the engine's replay")
+
+    # ms a frame: SCAN_BATCH frames through the scan graph, through the
+    # per-frame graph back to back, and through eager forward_batch
+    # (medians of 5 alternated samples of 2 groups, read back at the end)
+    def scan_ms(mode):
+        t0 = time.perf_counter()
+        if mode == "scan_graph":
+            outs = [scan(points, nums) for _ in range(2)]
+        elif mode == "frame_graph":
+            outs = [engine(points[i], nums[i]) for _ in range(2)
+                    for i in range(SCAN_BATCH)]
+        else:
+            outs = [forward_batch(engine.params, points, nums, engine.cfg,
+                                  True) for _ in range(2)]
+        for d in outs:
+            d.count.cpu()
+        return (time.perf_counter() - t0) / (2 * SCAN_BATCH) * 1e3
+
+    modes = ("scan_graph", "frame_graph", "eager_batch")
+    samples = {m: [] for m in modes}
+    for rep in range(5):
+        for m in (modes if rep % 2 == 0 else modes[::-1]):
+            samples[m].append(scan_ms(m))
+    out["scan"] = {"batch": SCAN_BATCH, "frames": group,
+                   "capture_seconds": scan.capture_seconds,
+                   "graph_pool_mb": scan.graph_pool_bytes / 2**20,
+                   "launches_a_replay": counts,
+                   **{f"ms_a_frame_{m}": statistics.median(v)
+                      for m, v in samples.items()},
+                   "samples": samples}
+    del scan
+
     # host-clock ms a frame, eager against graph, alternated in one process
     # (medians of 5 samples each of 2 passes over the frames)
     def sync_ms(fn, fr):
@@ -1179,7 +1251,6 @@ def grad_gate(name, got, ref):
 def check_training(frames, tmp):
     """Phase 12 (module docstring): training at DEFAULT_CONFIG fp32, full
     width, batch 2."""
-    import contextlib
     import io
     import torch
     from dsvt_ai_trt_tpu_torch import cli, kernels, train_run, weights
@@ -1264,6 +1335,8 @@ def check_training(frames, tmp):
         "top_device": [{"name": r["name"][:90], "ms": r["ms"],
                         "calls": r["calls"]} for r in prof.top_ops(8)]}
 
+    out["compiled"] = check_compiled_step(cfg, batch, fresh)
+
     # the trained weights through the bf16 kernel path, against the same
     # weights exported as .wts and reloaded; every top-k box is decoded
     # (score threshold 0), since a few steps may leave no score above 0.3
@@ -1295,15 +1368,18 @@ def check_training(frames, tmp):
                 "boxes": ca, "max_abs_err_vs_reloaded":
                     float(np.abs(a - b).max()) if ca else 0.0}
 
-    # cli train: 1 step with a checkpoint, then 1 resumed step + export
+    # cli train: 1 step with a checkpoint, then 1 resumed step + export,
+    # each through a captured step (the steps a graph ran are recorded)
     ckpt, cli_wts = os.path.join(tmp, "state.npz"), os.path.join(tmp, "cli.wts")
     lines = []
     for extra in (["--ckpt-every", "1"],
                   ["--resume", ckpt, "--export-wts", cli_wts]):
         buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
+        with contextlib.redirect_stdout(buf), graph_steps() as seen:
             cli.main(["train", "--steps", "1", "--weights", "", "--ckpt",
                       ckpt, *extra])
+        check([s.replays for s in seen] == [1], f"cli train {extra}: graph "
+              f"replays {[s.replays for s in seen]}, expected [1]")
         lines.append(json.loads(buf.getvalue().strip().splitlines()[-1]))
     state = np.load(ckpt)
     check(int(state["step"]) == 2 and int(state["o:[0].count"]) == 2,
@@ -1319,11 +1395,15 @@ def check_training(frames, tmp):
               f"cli train: exported {key} differs from the checkpoint's")
     out["cli_train"] = lines
 
-    # train_run: 3 steps, 2 held-out scenes, export, reload, re-eval
-    res = train_run.main(["--steps", "3", "--eval-scenes", "2",
-                          "--log-every", "1",
-                          "--out", os.path.join(tmp, "train_run.json"),
-                          "--wts", os.path.join(tmp, "train_run.wts")])
+    # train_run: 3 steps (3 replays of one captured step), 2 held-out
+    # scenes, export, reload, re-eval
+    with graph_steps() as seen:
+        res = train_run.main(["--steps", "3", "--eval-scenes", "2",
+                              "--log-every", "1",
+                              "--out", os.path.join(tmp, "train_run.json"),
+                              "--wts", os.path.join(tmp, "train_run.wts")])
+    check([s.replays for s in seen] == [3], f"train_run: graph replays "
+          f"{[s.replays for s in seen]}, expected [3]")
     check(res["wts_roundtrip"]["matches_trained"],
           f"train_run: reloaded recall {res['wts_roundtrip']['recall']} != "
           f"trained {res['eval']['recall']}")
@@ -1331,6 +1411,147 @@ def check_training(frames, tmp):
                                             "wts_roundtrip")}
     out["train_run"]["eval"] = {k: res["eval"][k] for k in
                                 ("recall", "precision", "n_gt", "n_pred")}
+    return out
+
+
+@contextlib.contextmanager
+def graph_steps():
+    """The ``CompiledTrainStep``s that capture a graph inside the block, as
+    a list (each keeps its count of replays)."""
+    from dsvt_ai_trt_tpu_torch.parallel.training import CompiledTrainStep
+    seen, orig = [], CompiledTrainStep.warmup
+
+    def recording(self):
+        if self._graph is None:
+            seen.append(self)
+        return orig(self)
+    CompiledTrainStep.warmup = recording
+    try:
+        yield seen
+    finally:
+        CompiledTrainStep.warmup = orig
+    check(all(s._graph is not None for s in seen), "a training step "
+          "object warmed up without capturing its graph")
+
+
+def check_compiled_step(cfg, batch, fresh):
+    """The compiled training step (``CompiledTrainStep``, the port of
+    ``jax.jit(train_step)``) at the training phase's configuration and
+    batch: one eager step under ``set_sync_debug_mode("error")``; then
+    TRAIN_STEPS graph replays against as many eager steps, each pair from
+    the same weights (the graph's state is set in place to the eager's
+    before each replay): the loss within 1e-5 relative, every leaf under
+    ``step_gate``, no kernel launched; then ms a step eager against graph
+    (medians of 5 alternated samples of 2 steps, host clock to a
+    synchronise), a traced step of each (device ms, span, idle share, the
+    index backward's device ms), the capture's seconds and its pool."""
+    import statistics
+    import torch
+    from dsvt_ai_trt_tpu_torch import kernels, weights
+    from dsvt_ai_trt_tpu_torch.parallel.training import (CompiledTrainStep,
+                                                         make_train_step)
+    from dsvt_ai_trt_tpu_torch.runtime.trace import capture
+    out = {}
+
+    # an eager step (warm) may not synchronise with the host
+    _, step = make_train_step(cfg, fresh())
+    step(*batch)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(*batch)
+    except RuntimeError as exc:
+        raise SmokeFailure(f"training: an eager step synchronises: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    out["eager_step_syncs"] = 0
+    del step
+
+    ref_p, graph_p = fresh(), fresh()
+    opt, eager = make_train_step(cfg, ref_p)
+    compiled = CompiledTrainStep(cfg, graph_p, len(batch[0]))
+    ref_leaves = weights.named_leaves(ref_p)
+    leaves = weights.named_leaves(graph_p)
+    kernels.reset_counts()
+    compiled.warmup()
+    rows = []
+    for k in range(TRAIN_STEPS):
+        if k:
+            with torch.no_grad():
+                for (_, r), (_, t) in zip(ref_leaves, leaves):
+                    t.copy_(r)
+                    for key in ("exp_avg", "exp_avg_sq"):
+                        compiled.optimizer.state[t][key].copy_(
+                            opt.state[r][key])
+                compiled.optimizer.count.copy_(opt.count)
+            weights.refold(graph_p)
+        want = float(eager(*batch))
+        got = float(compiled(*batch))
+        check(abs(got - want) <= 1e-5 * abs(want), f"training: replay {k} "
+              f"loss {got} against the eager step's {want}")
+        names = [weights.keystr(path) for path, _ in ref_leaves]
+        diffs = np.array([step_gate(
+            name, t.detach().cpu().numpy(), r.detach().cpu().numpy(),
+            t.grad.cpu().numpy(), r.grad.cpu().numpy(),
+            what=f"training: replay {k}")
+            for name, (_, r), (_, t) in zip(names, ref_leaves, leaves)])
+        # per leaf, max |d| over the leaf's largest: median and worst; the
+        # worst gradient's leaf with its largest |g| and its max |d|
+        worst = int(diffs[:, 0].argmax())
+        ref_g = ref_leaves[worst][1].grad
+        rows.append({"loss_eager": want, "loss_graph": got,
+                     "grad_rel_diff_median": float(np.median(diffs[:, 0])),
+                     "grad_rel_diff_max": float(diffs[worst, 0]),
+                     "grad_rel_diff_max_leaf": names[worst],
+                     "grad_rel_diff_max_leaf_grad_max": float(
+                         ref_g.abs().max()),
+                     "grad_rel_diff_max_leaf_abs_diff": float(
+                         (leaves[worst][1].grad - ref_g).abs().max()),
+                     "leaf_rel_diff_median": float(np.median(diffs[:, 1])),
+                     "leaf_rel_diff_max": float(diffs[:, 1].max())})
+    torch.cuda.synchronize()
+    launched = kernels.counts()
+    check(not any(launched.values()) and not any(
+        compiled.graph_launches.values()), f"training: the compiled step "
+          f"launched {launched} ({compiled.graph_launches} a replay)")
+    check(compiled.replays == TRAIN_STEPS and int(compiled.optimizer.count)
+          == TRAIN_STEPS, "training: the compiled step's count is "
+          f"{int(compiled.optimizer.count)} after {compiled.replays} replays")
+    out["steps"] = rows
+    out["capture_seconds"] = compiled.capture_seconds
+    out["graph_pool_mb"] = compiled.graph_pool_bytes / 2**20
+    out["reserved_gb"] = torch.cuda.memory_reserved() / 1e9
+
+    def step_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            fn(*batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / 2 * 1e3
+
+    fns = {"eager": eager, "graph": compiled}
+    samples = {m: [] for m in fns}
+    for rep in range(5):
+        for m in (("eager", "graph") if rep % 2 == 0 else ("graph", "eager")):
+            samples[m].append(step_ms(fns[m]))
+    out["ms_a_step"] = {m: statistics.median(v) for m, v in samples.items()}
+    out["ms_samples"] = samples
+    for m, fn in fns.items():
+        prof = capture(fn, batch, iters=2)
+        ops = prof.top_ops(len(prof.ops))
+        out[f"trace_{m}"] = {
+            "device_ms": prof.device_ms_per_iter,
+            "span_ms": prof.window_ms_per_iter,
+            "idle_share": prof.idle_share,
+            "host_ms": prof.host_ms_per_iter,
+            "host_launch_ms": prof.host_launch_ms_per_iter,
+            "indexing_backward_ms": sum(
+                r["ms"] for r in ops if "indexing_backward" in r["name"]),
+            "indexing_backward_calls": sum(
+                r["calls"] for r in ops if "indexing_backward" in r["name"]),
+            "device_events": len(prof.ops) / 2}
     return out
 
 
@@ -1348,7 +1569,8 @@ def compute_mode():
     return mode
 
 
-def step_gate(key, new, ref_new, grad, ref_grad, lr=1e-4):
+def step_gate(key, new, ref_new, grad, ref_grad, lr=1e-4,
+              what="multi: mp=2"):
     """One AdamW step, sharded against single-process.  The gradient
     under the JAX package's per-leaf gate (``grad_gate``): at full width a
     one-ulp change of the encoder weights alone moves the gradients about
@@ -1358,18 +1580,19 @@ def step_gate(key, new, ref_new, grad, ref_grad, lr=1e-4):
     difference by 1e-6 (100 AdamW eps); elsewhere the first step's lr * g /
     (|g| + eps), about lr * sign(g), may flip: held at 2 lr + 1e-6.
     Returns (the gradient's max |d| over its largest, the updated leaf's
-    max |d| over its largest)."""
+    max |d| over its largest).  ``what`` names the comparison in a failure
+    (the training phase holds graph replays to eager steps with it)."""
     gdiff = np.abs(grad - ref_grad)
     gmax = float(np.abs(ref_grad).max())
     check(float(gdiff.max()) <= max(5e-3 * gmax, 5e-4),
-          f"multi: mp=2 gradient of {key} differs by {float(gdiff.max()):.3e}"
+          f"{what} gradient of {key} differs by {float(gdiff.max()):.3e}"
           f" (largest {gmax:.3e})")
     d = np.abs(new - ref_new)
     scale = float(np.abs(ref_new).max())
     big = np.abs(ref_grad) > gdiff + 1e-6
     check(float(d[big].max(initial=0)) <= 1e-4 * scale
           and float(d.max(initial=0)) <= 2 * lr + 1e-6,
-          f"multi: mp=2 step of {key} differs by {float(d.max()):.3e}")
+          f"{what} step of {key} differs by {float(d.max()):.3e}")
     return (float(gdiff.max()) / max(gmax, 1e-30),
             float(d[big].max(initial=0)) / max(scale, 1e-30))
 

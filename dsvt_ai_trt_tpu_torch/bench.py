@@ -16,7 +16,9 @@ say what its warm-up took.
     back before the next), ``latency`` (``run_frames``' loop, two frames in
     flight, outputs copied back without blocking), ``stream`` (all frames
     back to back, one readback at the end; the headline) and ``batch``
-    (``forward_scan`` groups of 10, back to back, eager: no graph).
+    (groups of 10 frames back to back, one replay a group of an
+    ``Engine(..., batch=10)``, whose graph holds ``forward_batch``: the JAX
+    bench's ``forward_scan``).
     ``batch`` is kept as a side key and not folded into the headline (the
     minimum of two noisy samples is biased low);
   * the card, from a ``torch.profiler`` trace of the engine on frame 0
@@ -65,7 +67,7 @@ import numpy as np
 import torch
 
 WAYMO_POINTS = 180000   # Waymo-scale frame density (BASELINE config 5)
-BATCH = 10              # frames per forward_scan group
+BATCH = 10              # frames per scan group (one graph replay)
 
 
 def densify(frames, target: int, max_points: int, seed: int = 0):
@@ -198,20 +200,18 @@ def stream_ms(engine, frames, iters: int) -> float:
     return (time.perf_counter() - t0) / (iters * len(frames)) * 1e3
 
 
-def batch_ms(engine, frames, bsz: int, reps: int) -> float:
-    """``forward_scan`` over groups of ``bsz`` frames, ``reps`` groups back
-    to back, read back at the end."""
-    from .model.detector import forward_scan
+def batch_ms(scan, frames, reps: int) -> float:
+    """Groups of ``scan.batch`` frames (the frames repeated to fill one)
+    through ``scan``, an ``Engine(..., batch=...)``: ``reps`` graph replays
+    back to back, read back at the end."""
+    bsz = scan.batch
     pool = (frames * -(-bsz // len(frames)))[:bsz]
     points = torch.stack([p for p, _ in pool])
-    nums = [n for _, n in pool]
-
-    def run():
-        return forward_scan(engine.params, points, nums, engine.cfg, True,
-                            device=engine.device)
-    _read(run())
+    nums = torch.stack([torch.as_tensor(n, device=points.device)
+                        for _, n in pool])
+    _read(scan(points, nums))
     t0 = time.perf_counter()
-    outs = [run() for _ in range(reps)]
+    outs = [scan(points, nums) for _ in range(reps)]
     for d in outs:
         _read(d)
     return (time.perf_counter() - t0) / (reps * bsz) * 1e3
@@ -255,7 +255,8 @@ def run(args) -> dict:
     sync = sync_ms(engine, frames, iters)
     latency = pipelined_ms(engine, frames, iters, pipeline_depth=2)
     stream = stream_ms(engine, frames, iters)
-    batch = batch_ms(engine, frames, BATCH, 2 * iters)
+    scan = Engine(engine.params, cfg, with_nms=True, batch=BATCH).warmup()
+    batch = batch_ms(scan, frames, 2 * iters)
 
     peak = device_peak_flops(cfg.precision)
     prof = capture(engine, frames[0], iters=args.trace_iters,
@@ -292,6 +293,7 @@ def run(args) -> dict:
         "stream_ms_per_frame": stream,
         "batch_ms_per_frame": batch,
         "batch_size": BATCH,
+        "batch_graph_pool_mb": scan.graph_pool_bytes / 2**20,
         "iters": iters,
         "device_ms_per_frame": device_ms,
         "trace_frames_busy_ms": prof.window_busy_ms(),

@@ -195,17 +195,20 @@ def cmd_eval(args):
 
 def cmd_train(args):
     """Train on synthetic planted-object scenes, as the JAX ``cli train``:
-    the same flags and closing JSON line, plus ``--device``."""
+    the same flags and closing JSON line, plus ``--device``.  On the card
+    each step replays one CUDA graph (``CompiledTrainStep``), as the JAX
+    CLI runs ``jax.jit(train_step)``; ``--resume`` loads into its state."""
     import numpy as np
     from . import weights
     from .data import synthetic_batch
     from .ops.common import resolve_device
-    from .parallel.training import (load_train_state, make_train_step,
+    from .parallel.training import (CompiledTrainStep, load_train_state,
                                     save_train_state)
     cfg = _load_cfg(args)
     device = resolve_device(args.device)
     params = weights.from_jax_params(_load_params(args, cfg), device)
-    optimizer, train_step = make_train_step(cfg, params, device=device)
+    train_step = CompiledTrainStep(cfg, params, args.batch, device=device)
+    optimizer = train_step.optimizer
     step0 = 0
     if args.resume:
         resume = args.resume
@@ -268,8 +271,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="frames in flight before each readback (0 = fully "
                         "synchronous)")
     p.add_argument("--scan-batch", type=int, default=0,
-                   help="throughput mode: N frames per forward_scan group "
-                        "(0 = per-frame stream)")
+                   help="throughput mode: N frames per group, one graph "
+                        "replay a group (0 = per-frame stream)")
     p.set_defaults(fn=cmd_infer)
 
     p = sub.add_parser("bench", help="steady-state ms/frame")

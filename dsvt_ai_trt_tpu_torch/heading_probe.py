@@ -106,12 +106,10 @@ def run_ab(steps: int, wdirs, seed: int = 0, eval_scenes: int = 12,
     (global-norm clip 10, ``optax.adamw`` with a warmup-cosine lr peaking
     at 3e-4), then evaluate planted-box recovery; returns, per weight, the
     last loss, seconds, recall and the heading-error summaries."""
-    import torch
-
     from . import weights
     from .data import synthetic_batch
     from .ops.common import resolve_device
-    from .parallel.training import make_train_step, warmup_cosine
+    from .parallel.training import AdamW, make_train_step, warmup_cosine
     from .train_run import eval_recovery
 
     device = resolve_device(device)
@@ -121,14 +119,11 @@ def run_ab(steps: int, wdirs, seed: int = 0, eval_scenes: int = 12,
     for w in wdirs:
         params = weights.from_jax_params(weights.random_params(cfg, seed=seed),
                                          device)
-        optimizer = torch.optim.AdamW(weights.trainable(params), lr=lr,
-                                      betas=(0.9, 0.999), eps=1e-8,
-                                      weight_decay=1e-4)
+        optimizer = AdamW(weights.trainable(params), lr=lr,
+                          schedule=warmup_cosine(lr, min(50, steps // 4),
+                                                 steps))
         _, train_step = make_train_step(cfg, params, optimizer, dir_weight=w,
                                         max_grad_norm=10.0, device=device)
-        sched = warmup_cosine(lr, min(50, steps // 4), steps)
-        lr_sched = torch.optim.lr_scheduler.LambdaLR(
-            optimizer, lambda count: sched(count) / lr)
         rng = np.random.default_rng(seed + 1)
         t0 = time.perf_counter()
         loss = None
@@ -137,7 +132,6 @@ def run_ab(steps: int, wdirs, seed: int = 0, eval_scenes: int = 12,
                                                n_objects=3, n_ground=500,
                                                pts_per_obj=80)
             loss = train_step(pts, ns, targets)
-            lr_sched.step()
         ev = eval_recovery(params, cfg, eval_scenes, seed=4242,
                            min_score=0.2, device=device, n_objects=3,
                            n_ground=500, pts_per_obj=80)

@@ -15,9 +15,10 @@ the labels cost a few microseconds per frame.
 
 ``forward_batch`` is the per-frame stacked form that the JAX package's
 vmap computes (the form data parallelism runs on each dp rank,
-parallel/mesh.py:make_dp_engine) and ``forward_scan`` its throughput form
-(``lax.scan`` there): in PyTorch both are the frames of a batch one after
-another, outputs stacked, so they are one function.  ``tp`` (a process
+parallel/mesh.py:make_dp_engine) and its ``forward_scan`` too (``lax.scan``
+there): in PyTorch both are the frames of a batch one after another,
+outputs stacked, so they are one function, which ``runtime.compile.
+Engine(..., batch=B)`` captures as one CUDA graph a group.  ``tp`` (a process
 group; params from ``parallel.mesh.rank_params``) runs the encoders tensor
 parallel (model/backbone3d.py), and ``forward_spatial`` is ``forward``
 inside ``parallel.spatial.spatial_sharding``: one frame sharded by pillar,
@@ -130,9 +131,6 @@ def forward_batch(params: Dict, points, num_points, cfg: DSVTConfig,
     return Detections(boxes=torch.stack([d.boxes for d in dets]),
                       count=torch.stack([d.count for d in dets]),
                       occupancy=torch.stack([d.occupancy for d in dets]))
-
-
-forward_scan = forward_batch
 
 
 def forward_spatial(params: Dict, points, num_points, cfg: DSVTConfig,

@@ -9,20 +9,34 @@ on ``model.detector.forward_train``: the plain paths, since the JAX
 package's kernels, and so the port's B1-B3, define no backward.  No
 hand-written kernel runs in a training step.
 
-``make_train_step`` defaults to ``torch.optim.AdamW(lr=1e-4,
-weight_decay=1e-4, eps=1e-8)``, which is ``optax.adamw(1e-4)``: both decay
-every leaf, and a leaf that gets no gradient (the unused iou branch) is
-given a zero one so that it is decayed and its moments kept, as optax does.
-After each update ``weights.refold`` remakes the derived encoder weights,
-which the inference path reads.  ``save_train_state`` writes the JAX
-package's npz (``p:`` params with HWIO convs, ``o:[0].count/mu/nu``, then
-``step``), so a checkpoint moves between the packages both ways.
+``make_train_step`` defaults to ``AdamW(lr=1e-4)``, this module's
+``optax.adamw(1e-4)`` written in tensor ops: one update count on the
+device for every leaf (optax's ``count``), the learning rate a float or a
+function of that count (``warmup_cosine``), so that a step reads nothing
+back to the host.  It decays every leaf, and a leaf that gets no gradient
+(the unused iou branch) is given a zero one so that it is decayed and its
+moments kept, as optax does.  After each update ``weights.refold`` remakes
+the derived encoder weights, which the inference path reads.
+``save_train_state`` writes the JAX package's npz (``p:`` params with HWIO
+convs, ``o:[0].count/mu/nu``, then ``step``), so a checkpoint moves
+between the packages both ways.
+
+``CompiledTrainStep`` is ``jax.jit(train_step)`` for the card: the whole
+step (loss, backward, clip, AdamW, refold) captured once as a CUDA graph
+over static input buffers, then replayed a call.  A replay reads and
+writes only the addresses it captured, so every piece of state a step
+touches is updated in place, never replaced: the parameters, their
+gradients, the moments and the count, the derived weights (``refold``)
+and what ``load_train_state`` restores.  A host read, a state tensor that
+is rebound, or a learning rate held as a Python float that changes
+between steps would each break the capture or be frozen into it.
 
 Frames of a batch run one after another (the forward has data-dependent
 shapes).  ``remat`` (on by default on the card, as JAX's follows its
 backend) wraps each frame's float stages in ``torch.utils.checkpoint``; the
 integer stages run before it and carry no gradient, so the recomputation
-reads the same partitions.
+reads the same partitions.  The step draws no random number, so the
+checkpoint keeps no RNG state (reading the card's would stop a capture).
 
 ``make_train_step(..., mesh=...)`` trains over a ``parallel.mesh`` mesh.
 dp: each dp rank takes its B/dp frames of the global batch, and after the
@@ -37,15 +51,18 @@ and equal on every mp rank), and ``weights.refold`` refolds each shard.
 
 from __future__ import annotations
 
+import time
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import kernels
 from ..config import DSVTConfig
 from ..model.detector import float_stages, forward_train, partition_frame
 from ..ops.common import resolve_device
+from ..runtime.compile import capture_graph
 from ..weights import (keystr, named_leaves, refold, to_numpy_leaf,
                        to_torch_leaf, trainable)
 from .collectives import all_reduce
@@ -145,16 +162,73 @@ def batched_loss(params, points, num_points, targets: Targets,
         # recomputation runs after the loop
         args = (*partition_frame(params, points[b], num_points[b], cfg,
                                  device), Targets(*(t[b] for t in targets)))
-        losses.append(checkpoint(frame_loss, *args, use_reentrant=False)
+        losses.append(checkpoint(frame_loss, *args, use_reentrant=False,
+                                 preserve_rng_state=False)
                       if remat else frame_loss(*args))
     return torch.stack(losses).mean()
 
 
-def default_optimizer(params) -> torch.optim.Optimizer:
+class AdamW(torch.optim.Optimizer):
+    """``optax.adamw(lr, b1, b2, eps, weight_decay)`` in tensor ops, so a
+    step reads nothing back to the host and a CUDA graph can hold it.
+
+    Its state is made here, at fixed addresses: ``count``, a 0-dim float32
+    tensor on the leaves' device (optax's update count), shared by every
+    leaf as ``state[leaf]["step"]``, and per leaf ``exp_avg`` and
+    ``exp_avg_sq`` (optax's mu and nu), zero.  ``step`` updates them in
+    place as optax does: mu = b1 mu + (1 - b1) g, nu = b2 nu + (1 - b2) g^2,
+    count + 1, then leaf -= lr (mu / (1 - b1^count) / (sqrt(nu / (1 -
+    b2^count)) + eps) + weight_decay leaf).  ``lr`` is each group's float,
+    or, with ``schedule``, ``schedule(count)`` on the count before the
+    increment, computed on the card (``warmup_cosine`` takes a tensor).
+    Leaves without a gradient are skipped, as torch's optimizers do."""
+
+    def __init__(self, params, lr: float = 1e-4, betas=(0.9, 0.999),
+                 eps: float = 1e-8, weight_decay: float = 1e-4,
+                 schedule: Optional[Callable] = None):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
+                                      weight_decay=weight_decay))
+        self.schedule = schedule
+        leaves = [t for group in self.param_groups for t in group["params"]]
+        self.count = torch.zeros((), dtype=torch.float32,
+                                 device=leaves[0].device)
+        for t in leaves:
+            self.state[t] = {"step": self.count,
+                             "exp_avg": torch.zeros_like(t),
+                             "exp_avg_sq": torch.zeros_like(t)}
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("AdamW.step takes no closure")
+        count = self.count + 1
+        for group in self.param_groups:
+            leaves = [t for t in group["params"] if t.grad is not None]
+            grads = [t.grad for t in leaves]
+            mu = [self.state[t]["exp_avg"] for t in leaves]
+            nu = [self.state[t]["exp_avg_sq"] for t in leaves]
+            b1, b2 = group["betas"]
+            lr = (self.schedule(self.count) if self.schedule is not None
+                  else group["lr"])
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_add_(mu, grads, alpha=1 - b1)
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_addcmul_(nu, grads, grads, value=1 - b2)
+            update = torch._foreach_div(mu, 1 - torch.pow(b1, count))
+            denom = torch._foreach_div(nu, 1 - torch.pow(b2, count))
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, group["eps"])
+            torch._foreach_div_(update, denom)
+            torch._foreach_add_(update, leaves, alpha=group["weight_decay"])
+            torch._foreach_mul_(update, lr)
+            torch._foreach_sub_(leaves, update)
+        self.count.copy_(count)
+
+
+def default_optimizer(params) -> AdamW:
     """``optax.adamw(1e-4)``: lr 1e-4, betas (0.9, 0.999), eps 1e-8, decay
-    1e-4 on every leaf (torch's AdamW decays at 1e-2 unless told)."""
-    return torch.optim.AdamW(trainable(params), lr=1e-4, betas=(0.9, 0.999),
-                             eps=1e-8, weight_decay=1e-4)
+    1e-4 on every leaf."""
+    return AdamW(trainable(params))
 
 
 def clip_by_global_norm(grads, max_norm: float, sharded=(),
@@ -235,20 +309,125 @@ def make_train_step(cfg: DSVTConfig, params, optimizer=None,
     return optimizer, train_step
 
 
+class CompiledTrainStep:
+    """``jax.jit(train_step)`` for the card: ``loss = step(points,
+    num_points, targets)`` on batches of ``batch`` frames (points [batch,
+    max_points, 4], num_points [batch] int, ``Targets`` at their dense
+    shapes), the step of ``make_train_step`` (same arguments, kept as
+    ``eager``) as one CUDA graph.
+
+    ``warmup``, which the first call runs if the caller did not, makes the
+    static input buffers, runs ``WARM_RUNS`` forward and backward passes on
+    them (no update: the optimizer's state exists already and the weights
+    stay as given), and captures one whole step into one CUDA graph
+    (``runtime.compile.capture_graph``): zeroed gradients, ``batched_loss``,
+    the backward with ``remat``'s recomputation, zero gradients for unused
+    leaves, the optional clip, the AdamW update and ``refold``.  The capture
+    runs nothing, so the first replay is step 1 from the given weights.  A
+    call copies the batch into the buffers in stream order, replays, and
+    returns a copy of the loss; nothing waits for the card.  The
+    parameters, their gradients (``leaf.grad``, rewritten by each replay),
+    the optimizer's state and the derived weights keep their addresses, so
+    ``save_train_state`` reads what the replays computed and
+    ``load_train_state`` writes where the next replay reads (module
+    docstring).  The optimizer must update in tensor ops (``AdamW``; the
+    default), its learning rate fixed or a ``schedule`` of its count.
+
+    On the CPU a call runs the eager step.  Under a ``mesh`` it raises
+    ``ValueError``: gloo's host copies cannot be captured, so sharded steps
+    stay on ``make_train_step``.  A capture or replay that fails raises;
+    nothing falls back to the eager step on the card.  Recorded:
+    ``capture_seconds``, ``graph_pool_bytes`` (the device memory the
+    capture reserved: the graph's pool, which holds a whole step's
+    intermediates), ``graph_launches`` (hand-written kernels a replay
+    launches: none, training runs the plain paths) and ``replays``."""
+
+    WARM_RUNS = 2
+
+    def __init__(self, cfg: DSVTConfig, params, batch: int, optimizer=None,
+                 dir_weight: float = 0.25, aux_weight: float = 0.25,
+                 max_grad_norm: Optional[float] = None,
+                 remat: Optional[bool] = None, device="cuda", mesh=None):
+        if mesh is not None:
+            raise ValueError("CompiledTrainStep: a sharded step cannot be "
+                             "captured (gloo copies through the host); use "
+                             "make_train_step(..., mesh=mesh)")
+        self.cfg, self.params, self.batch = cfg, params, batch
+        self.device = resolve_device(device)
+        self.remat = self.device.type == "cuda" if remat is None else remat
+        self.loss_weights = (dir_weight, aux_weight)
+        self.optimizer, self.eager = make_train_step(
+            cfg, params, optimizer, dir_weight, aux_weight, max_grad_norm,
+            self.remat, self.device)
+        self._graph = None
+        self.graph_launches = {}
+        self.capture_seconds = self.graph_pool_bytes = None
+        self.replays = 0
+
+    def __call__(self, points, num_points, targets: Targets) -> torch.Tensor:
+        if self.device.type != "cuda":
+            return self.eager(points, num_points, targets)
+        if self._graph is None:
+            self.warmup()
+        for buf, t in zip(self._inputs, (points, num_points, *targets)):
+            if tuple(t.shape) != tuple(buf.shape):
+                raise ValueError(f"CompiledTrainStep: the graph takes "
+                                 f"{[tuple(b.shape) for b in self._inputs]} "
+                                 f"(points, num_points, targets), got "
+                                 f"{tuple(t.shape)} for {tuple(buf.shape)}")
+            buf.copy_(t, non_blocking=True)
+        self._graph.replay()
+        self.replays += 1
+        kernels.replayed(self.graph_launches)
+        return self._loss.clone()
+
+    def warmup(self) -> "CompiledTrainStep":
+        """Capture the step (class docstring); on the CPU nothing."""
+        if self.device.type != "cuda" or self._graph is not None:
+            return self
+        t0 = time.perf_counter()
+        cfg, dev, B = self.cfg, self.device, self.batch
+        H, W = cfg.grid_size[1], cfg.grid_size[0]
+        self._inputs = (
+            torch.zeros((B, cfg.max_points, 4), dtype=torch.float32,
+                        device=dev),
+            torch.zeros((B,), dtype=torch.int32, device=dev),
+            torch.zeros((B, H, W, cfg.num_classes), device=dev),
+            torch.zeros((B, H, W, 8), device=dev),
+            torch.zeros((B, H, W), device=dev))
+        points, num, *targets = self._inputs
+        targets = Targets(*targets)
+        leaves = trainable(self.params)
+
+        def forward_backward():
+            loss = batched_loss(self.params, points, num, targets, cfg,
+                                self.remat, *self.loss_weights, device=dev)
+            torch.autograd.grad(loss, leaves, allow_unused=True)
+
+        self._graph, self._loss, self.graph_launches, self.graph_pool_bytes \
+            = capture_graph(lambda: self.eager(points, num, targets),
+                            forward_backward, dev, self.WARM_RUNS)
+        self.capture_seconds = time.perf_counter() - t0
+        return self
+
+
 def warmup_cosine(lr: float, warmup_steps: int, decay_steps: int
-                  ) -> Callable[[int], float]:
+                  ) -> Callable:
     """``optax.warmup_cosine_decay_schedule(0, lr, warmup_steps,
     decay_steps)`` as a function of the update count (read before the
-    update, so update 0 runs at lr 0); for ``LambdaLR``, divide by lr."""
+    update, so update 0 runs at lr 0).  The rate is a float32 tensor on
+    the count's device (``AdamW.count`` keeps it on the card), computed
+    there, as optax computes it inside ``jax.jit``."""
     cosine_steps = decay_steps - warmup_steps
 
-    def schedule(count: int) -> float:
-        if count < warmup_steps:
-            return lr * count / warmup_steps
+    def schedule(count):
+        c = torch.as_tensor(count, dtype=torch.float32)
+        warm = c * (lr / max(warmup_steps, 1))
         if cosine_steps <= 0:
-            return lr
-        done = min(count - warmup_steps, cosine_steps)
-        return lr * 0.5 * (1 + np.cos(np.pi * done / cosine_steps))
+            return torch.where(c < warmup_steps, warm, lr)
+        done = torch.clamp(c - warmup_steps, max=cosine_steps)
+        cos = (torch.cos(done * (np.pi / cosine_steps)) + 1) * (0.5 * lr)
+        return torch.where(c < warmup_steps, warm, cos)
 
     return schedule
 
@@ -266,18 +445,15 @@ def save_train_state(path: str, params, optimizer, step: int = 0) -> str:
     first step), then ``step``.  Returns the file path (``.npz`` appended
     when missing)."""
     named = named_leaves(params)
-    count = 0
     flat = {}
     for p, t in named:
         flat[f"p:{keystr(p)}"] = to_numpy_leaf(p, t)
     for p, t in named:
-        state = optimizer.state.get(t, {})
-        if state:
-            count = int(state["step"])
+        state = optimizer.state[t]
         for slot, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
-            moment = state.get(key, torch.zeros_like(t))
-            flat[f"o:[0].{slot}{keystr(p)}"] = to_numpy_leaf(p, moment)
-    flat["o:[0].count"] = np.int32(count)
+            flat[f"o:[0].{slot}{keystr(p)}"] = to_numpy_leaf(p, state[key])
+    count = optimizer.state[named[0][1]]["step"]      # shared by every leaf
+    flat["o:[0].count"] = np.int32(int(count))
     flat["step"] = np.int64(step)
     if not path.endswith(".npz"):
         path = path + ".npz"
@@ -287,8 +463,10 @@ def save_train_state(path: str, params, optimizer, step: int = 0) -> str:
 
 def load_train_state(path: str, params, optimizer) -> int:
     """Restore a ``save_train_state`` file (either package's) into
-    ``params`` and ``optimizer``'s state, in place, refold; returns the
-    step."""
+    ``params`` and ``optimizer``'s state (an ``AdamW``'s, made when it
+    was), in place: the parameters, the moments and the count keep their
+    addresses, so a ``CompiledTrainStep`` resumes from them; refold;
+    returns the step."""
     data = np.load(path)
     count = int(data["o:[0].count"])
 
@@ -303,10 +481,10 @@ def load_train_state(path: str, params, optimizer) -> int:
     with torch.no_grad():
         for p, t in named_leaves(params):
             t.copy_(tensor(f"p:{keystr(p)}", p, t))
-            optimizer.state[t] = {
-                "step": torch.tensor(float(count), dtype=torch.float32),
-                "exp_avg": tensor(f"o:[0].mu{keystr(p)}", p, t),
-                "exp_avg_sq": tensor(f"o:[0].nu{keystr(p)}", p, t)}
+            state = optimizer.state[t]
+            state["exp_avg"].copy_(tensor(f"o:[0].mu{keystr(p)}", p, t))
+            state["exp_avg_sq"].copy_(tensor(f"o:[0].nu{keystr(p)}", p, t))
+            state["step"].fill_(count)
     refold(params)
     return int(data["step"])
 

@@ -22,9 +22,13 @@ The compiled program is a CUDA graph, the counterpart of the JAX
 CUDA graphs): ``Engine.warmup`` on the card captures one whole
 ``model.detector.forward`` over static input buffers, weights included, and
 every call after it copies its frame into those buffers and replays the
-graph, one launch a frame.  ``forward`` has static shapes and reads nothing
-back to the host (NMS's rounds run inside kernel nms_peel), which is what
-capture requires.  The graph is made when the engine warms up, never
+graph, one launch a frame.  ``Engine(..., batch=B)`` captures
+``forward_batch`` over B static frames instead, one launch a group: the
+JAX package's jitted ``forward_scan`` (``run_frames_scan``).
+``capture_graph`` is the capture itself, which the compiled training step
+(``parallel.training.CompiledTrainStep``) shares.  ``forward`` has static
+shapes and reads nothing back to the host (NMS's rounds run inside kernel
+nms_peel), which is what capture requires.  The graph is made when the engine warms up, never
 stored: a ``jax.export`` blob is compiled on its device when loaded too.
 Not here, on purpose: ``torch.export``, which cannot see inside the
 ``ctypes`` kernels.  Nor does the JAX package's
@@ -45,7 +49,7 @@ import torch
 
 from .. import kernels
 from ..config import DSVTConfig
-from ..model.detector import forward
+from ..model.detector import forward, forward_batch
 from ..ops.common import resolve_device
 from ..ops.postprocess import Detections
 from ..weights import from_jax_params
@@ -142,6 +146,30 @@ def load_engine(path_or_blob, expect_cfg: Optional[DSVTConfig] = None,
     return meta
 
 
+def capture_graph(fn, warm, device, warm_runs: int):
+    """Run ``warm()`` ``warm_runs`` times on a side stream (lazy
+    initialisations, library handles and the allocator settle there), then
+    capture ``fn()`` into one ``torch.cuda.CUDAGraph``, which records the
+    work and runs none of it.  Returns (the graph, what ``fn`` returned: its
+    tensors live in the graph's pool and each replay rewrites them, the
+    kernel launches the capture recorded (``kernels.captured``), the device
+    memory the capture reserved: the graph's private pool)."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for _ in range(warm_runs):
+            warm()
+    torch.cuda.current_stream(device).wait_stream(side)
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved(device)
+    graph = torch.cuda.CUDAGraph()
+    with kernels.captured() as launches, torch.cuda.graph(graph):
+        out = fn()
+    return (graph, out, dict(launches),
+            torch.cuda.memory_reserved(device) - before)
+
+
 class Engine:
     """Callable wrapper: ``dets = engine(points, num_points)``.
 
@@ -165,13 +193,19 @@ class Engine:
     Launch counts (``kernels.counts``) rise per replay by what the capture
     recorded.  ``eager`` runs the same forward op by op, and is what runs
     on the CPU, where the caller asked for it.
+
+    With ``batch`` B the engine runs ``forward_batch`` on groups of B
+    frames: ``points`` [B, max_points, 4], ``num_points`` B ints or a [B]
+    tensor, stacked Detections out; its graph holds B frames' launches.
     """
 
     WARM_RUNS = 2   # eager frames on a side stream before the capture
 
     def __init__(self, params, cfg: DSVTConfig, device="cuda",
-                 with_nms: bool = True, engine_path: Optional[str] = None):
+                 with_nms: bool = True, engine_path: Optional[str] = None,
+                 batch: Optional[int] = None):
         self.cfg = cfg
+        self.batch = batch
         self.device = resolve_device(device)
         self.with_nms = with_nms
         if engine_path and os.path.exists(engine_path):
@@ -193,8 +227,9 @@ class Engine:
 
     def eager(self, points, num_points) -> Detections:
         """The forward op by op, on this engine's weights and device."""
-        return forward(self.params, points, num_points, self.cfg,
-                       self.with_nms, device=self.device)
+        run = forward if self.batch is None else forward_batch
+        return run(self.params, points, num_points, self.cfg, self.with_nms,
+                   device=self.device)
 
     def __call__(self, points, num_points) -> Detections:
         if self.device.type != "cuda":
@@ -214,27 +249,35 @@ class Engine:
             points = torch.from_numpy(np.asarray(points, dtype=np.float32))
         if tuple(points.shape) != tuple(self._points.shape):
             raise ValueError(f"the engine's graph takes points "
-                             f"{tuple(self._points.shape)} (max_points, 4), "
-                             f"got {tuple(points.shape)}")
+                             f"{tuple(self._points.shape)} ([batch,] "
+                             f"max_points, 4), got {tuple(points.shape)}")
         self._points.copy_(points, non_blocking=True)
         if isinstance(num_points, torch.Tensor):
-            self._num.copy_(num_points.reshape(()), non_blocking=True)
-        else:
+            self._num.copy_(num_points.reshape(self._num.shape),
+                            non_blocking=True)
+        elif np.ndim(num_points) == 0:
             self._num.fill_(int(num_points))
+        else:
+            self._num.copy_(torch.from_numpy(np.asarray(
+                num_points, np.int32).reshape(self._num.shape)),
+                non_blocking=True)
 
     def warmup(self) -> "Engine":
         """Make the engine ready and wait for it, off the clock.  On the
-        CPU: one empty frame.  On the card, once: build and load every
-        kernel library, run ``WARM_RUNS`` eager frames on a side stream
-        (lazy initialisations and the allocator settle there; the kernels'
-        first-launch attribute calls run), capture ``forward`` over the
-        static buffers into one CUDA graph, and replay it on an empty
-        frame.  Recorded: ``capture_seconds`` (all of that, after the
-        build) and ``graph_pool_bytes``, the device memory the capture
-        reserved: the graph's private pool, which holds every intermediate
-        of a frame."""
+        CPU: one empty frame (group).  On the card, once: build and load
+        every kernel library, run ``WARM_RUNS`` eager frames on a side
+        stream (lazy initialisations and the allocator settle there; the
+        kernels' first-launch attribute calls run), capture ``forward``
+        (``forward_batch``) over the static buffers into one CUDA graph
+        (``capture_graph``), and replay it on an empty frame (group).
+        Recorded: ``capture_seconds`` (all of that, after the build) and
+        ``graph_pool_bytes``, the device memory the capture reserved: the
+        graph's private pool, which holds every intermediate of a frame
+        (group)."""
+        frames = () if self.batch is None else (self.batch,)
         if self.device.type != "cuda":
-            self(np.zeros((self.cfg.max_points, 4), np.float32), 0)
+            self(np.zeros(frames + (self.cfg.max_points, 4), np.float32),
+                 np.zeros(frames, np.int32))
             return self
         if self._graph is not None:
             return self
@@ -242,25 +285,14 @@ class Engine:
         for name in kernels.SPECS:
             kernels.lib(name)
         t0 = time.perf_counter()
-        self._points = torch.zeros((self.cfg.max_points, 4),
+        self._points = torch.zeros(frames + (self.cfg.max_points, 4),
                                    dtype=torch.float32, device=self.device)
-        self._num = torch.zeros((), dtype=torch.int32, device=self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            for _ in range(self.WARM_RUNS):
-                self.eager(self._points, self._num)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        torch.cuda.synchronize(self.device)
-        torch.cuda.empty_cache()
-        before = torch.cuda.memory_reserved(self.device)
-        graph = torch.cuda.CUDAGraph()
-        with kernels.captured() as launches, torch.cuda.graph(graph):
-            out = self.eager(self._points, self._num)
-        self.graph_pool_bytes = torch.cuda.memory_reserved(self.device) \
-            - before
-        self._graph, self._out = graph, out
-        self.graph_launches = dict(launches)
+        self._num = torch.zeros(frames, dtype=torch.int32, device=self.device)
+
+        def run():
+            return self.eager(self._points, self._num)
+        self._graph, self._out, self.graph_launches, self.graph_pool_bytes \
+            = capture_graph(run, run, self.device, self.WARM_RUNS)
         self(self._points, 0).count.cpu()   # an empty frame, waited for
         self.capture_seconds = time.perf_counter() - t0
         log.info("captured the forward in %.2f s: %d MB in the graph's pool, "

@@ -25,10 +25,12 @@ the next replay, which the stream runs after this frame's copies of them
 refilled by the host only after the event recorded behind its frame's
 replay has completed.
 
-``run_frames_scan`` is the throughput mode (``model.detector.forward_scan``
-over groups of ``batch`` frames, eager: no graph yet) and ``benchmark``
-the steady-state ms per frame of the pipelined loop.  ``Engine`` lives in runtime/compile.py and is
-re-exported here.
+``run_frames_scan`` is the throughput mode: groups of ``batch`` frames
+through an ``Engine(..., batch=batch)``, which on the card replays one CUDA
+graph of ``forward_batch`` a group, as the JAX package dispatches its
+jitted ``forward_scan`` once a group.  ``benchmark`` is the steady-state
+ms per frame of the pipelined loop.  ``Engine`` lives in
+runtime/compile.py and is re-exported here.
 """
 
 from __future__ import annotations
@@ -45,7 +47,6 @@ from ..config import DSVTConfig
 from ..io.host_nms import nms_host
 from ..io.output import save_txt
 from ..io.pointcloud import load_bin
-from ..model.detector import forward_scan
 from .compile import Engine
 
 __all__ = ["Engine", "run_frames", "run_frames_scan", "benchmark",
@@ -206,28 +207,27 @@ def run_frames(engine: Engine, paths: List[str], out_dir: Optional[str] = None,
 def run_frames_scan(params, cfg: DSVTConfig, paths: List[str],
                     out_dir: Optional[str] = None, batch: int = 10,
                     host_nms: bool = False, device="cuda") -> List[dict]:
-    """Throughput mode: frames in groups of ``batch`` through
-    ``forward_scan``, one readback per group.  The tail group is padded by
-    repeating its last frame and the padded outputs are discarded.  Result
-    txts equal ``run_frames``'; per-frame ``seconds`` is the group's wall
-    time over its size.  ``params`` as for ``Engine``."""
-    engine = Engine(params, cfg, device=device, with_nms=not host_nms)
+    """Throughput mode: frames in groups of ``batch`` through one
+    ``Engine(..., batch=batch)`` (on the card one graph replay a group),
+    one readback per group.  The tail group is padded by repeating its
+    last frame and the padded outputs are discarded.  Result txts equal
+    ``run_frames``'; per-frame ``seconds`` is the group's wall time over
+    its size.  ``params`` as for ``Engine``."""
+    engine = Engine(params, cfg, device=device, with_nms=not host_nms,
+                    batch=batch)
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
     results: List[dict] = []
     staged = _stage(paths, cfg, results)
     if not staged:
         return results
-    _, _, pts0, n0 = staged[0]
-    engine.eager(pts0, n0).count.cpu()   # off the clock: builds the kernels
+    engine.warmup()                      # off the clock: build and capture
     for lo in range(0, len(staged), batch):
         group = staged[lo:lo + batch]
         padded = group + [group[-1]] * (batch - len(group))
         t0 = time.perf_counter()
-        points = torch.stack([p for _, _, p, _ in padded]).to(engine.device)
-        dets = forward_scan(engine.params, points,
-                            [n for _, _, _, n in padded], cfg,
-                            engine.with_nms, device=engine.device)
+        dets = engine(torch.stack([p for _, _, p, _ in padded]),
+                      [n for _, _, _, n in padded])
         boxes_b, count_b, occ_b = (t.cpu().numpy() for t in
                                    (dets.boxes, dets.count, dets.occupancy))
         seconds = (time.perf_counter() - t0) / batch

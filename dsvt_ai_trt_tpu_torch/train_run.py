@@ -10,7 +10,8 @@ every ``--real-every``-th batch plants the boxes onto those frames instead,
 ``data.real_background_scene``), then runs the chain the reference points
 upstream for:
 
-  train N steps (batch 2; global-norm clip 10, AdamW, warmup-cosine lr)
+  train N steps (batch 2; global-norm clip 10, AdamW, warmup-cosine lr;
+                 on the card one CUDA graph a step, CompiledTrainStep)
     -> eval planted-box recovery on held-out scenes (eval.coverage,
        recall/precision at IoU 0.5, a score sweep, a miss table)
     -> export .wts (weights.unfold_params + save_wts)
@@ -41,7 +42,7 @@ from .data import (batch_from_scenes, real_background_scene, synthetic_batch,
 from .eval import _bev_iou, coverage
 from .model.detector import forward
 from .ops.common import resolve_device
-from .parallel.training import make_train_step, warmup_cosine
+from .parallel.training import AdamW, CompiledTrainStep, warmup_cosine
 
 
 def is_real_step(step: int, every: int) -> bool:
@@ -224,19 +225,16 @@ def main(argv=None) -> dict:
             for _ in range(batch)]
         return batch_from_scenes(scenes, cfg, device)
 
-    optimizer = torch.optim.AdamW(weights.trainable(params), lr=args.lr,
-                                  betas=(0.9, 0.999), eps=1e-8,
-                                  weight_decay=1e-4)
-    _, train_step = make_train_step(cfg, params, optimizer,
-                                    dir_weight=args.dir_weight,
-                                    aux_weight=args.aux_weight,
-                                    max_grad_norm=10.0, device=device)
     # warmup-cosine: the fixed adamw(1e-4) default is slow to localize
-    # from random init in a few hundred steps
+    # from random init in a few hundred steps; the rate is computed on the
+    # card from the optimizer's count, inside the step's graph
     sched = warmup_cosine(args.lr, min(50, max(args.steps // 4, 1)),
                           max(args.steps, 1))
-    lr_sched = torch.optim.lr_scheduler.LambdaLR(
-        optimizer, lambda count: sched(count) / args.lr)
+    optimizer = AdamW(weights.trainable(params), lr=args.lr, schedule=sched)
+    train_step = CompiledTrainStep(cfg, params, args.batch, optimizer,
+                                   dir_weight=args.dir_weight,
+                                   aux_weight=args.aux_weight,
+                                   max_grad_norm=10.0, device=device)
 
     rng = np.random.default_rng(args.seed + 1)
     losses, n_real = [], 0
@@ -249,7 +247,6 @@ def main(argv=None) -> dict:
             pts, ns, targets = synthetic_batch(rng, cfg, args.batch,
                                                device=device)
         loss = train_step(pts, ns, targets)
-        lr_sched.step()
         if step % args.log_every == 0 or step == args.steps - 1:
             loss = float(loss)          # waits for the card
             losses.append({"step": step, "loss": round(loss, 4)})

@@ -514,17 +514,27 @@ def from_jax_params(params: Dict, device="cuda"):
 
 def refold(params: Dict) -> Dict:
     """Remake every encoder pass's derived weights from its current leaves,
-    in place, without autograd (``model.backbone3d.fold_encoder``: packed
-    q/k/v projections and their bf16 copies, kernel B2's bf16 weights and
+    without autograd (``model.backbone3d.fold_encoder``: packed q/k/v
+    projections and their bf16 copies, kernel B2's bf16 weights and
     stacked LayerNorm vectors).  Run it after every change to the leaves:
-    the inference path reads only the derived copies of those weights."""
+    the inference path reads only the derived copies of those weights.
+    A derived weight that exists is written in place, so a CUDA graph that
+    captured its address (an ``Engine``'s, a compiled training step's)
+    reads the new values; a missing one is added."""
     import torch
     from .model.backbone3d import fold_encoder  # local: avoids import cycle
 
     with torch.no_grad():
         for b, block in enumerate(params["blocks"]):
             for e, enc in enumerate(block["enc"]):
-                enc.update(fold_encoder(enc, params["posembed"][b][e]))
+                folded = fold_encoder(enc, params["posembed"][b][e])
+                for k, v in folded.items():
+                    old = enc.get(k)
+                    if (isinstance(old, torch.Tensor) and old.shape == v.shape
+                            and old.dtype == v.dtype):
+                        old.copy_(v)
+                    else:
+                        enc[k] = v
     return params
 
 

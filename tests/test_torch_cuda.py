@@ -16,7 +16,12 @@ and rounds every product, difference, quotient and sum of the clip on its
 own, with no fused multiply-adds, as the plain version's PyTorch ops do;
 nms_peel bit-exact (kept set and count: boolean algebra).  The engine's
 replays bit-exact against ``Engine.eager`` at a tiny configuration: the
-same kernels on the same inputs.
+same kernels on the same inputs; the scan graph's frames bit-exact against
+the per-frame engine's replays.  The compiled training step against eager
+steps from the same weights: the loss at 1e-5 relative, each leaf within
+1e-6 of its largest plus 2 lr (the backward's atomics reorder sums, and
+AdamW's first steps move a leaf by about lr times the sign of its
+gradient, which a rounding difference can flip where it is near 0).
 """
 
 import numpy as np
@@ -370,3 +375,102 @@ def test_graph_replay_equals_eager(dev, precision, with_nms):
     assert not torch.equal(replays[0].boxes, replays[1].boxes)
     with pytest.raises(ValueError, match="max_points"):
         engine(np.zeros((10, 4), np.float32), 3)
+
+
+def test_scan_graph_equals_per_frame_replays(dev):
+    """``Engine(..., batch=3)``: one replay holds three frames' launches,
+    and each frame equals the per-frame engine's replay bit for bit."""
+    cfg = _tiny_config("bf16")
+    params = weights.random_params(cfg, 0)
+    engine = Engine(params, cfg).warmup()
+    scan = Engine(engine.params, cfg, batch=3).warmup()
+    frames = [_cloud(cfg, n, seed) for n, seed in
+              ((1500, 1), (600, 2), (900, 3))]
+    per_frame = {"segment_max": 2, "set_attention": 4, "encoder_epilogue": 4,
+                 "rotated_overlap": 1, "nms_peel": 1}
+    assert scan.graph_launches == {k: 3 * v for k, v in per_frame.items()}
+    points = np.stack([p for p, _ in frames])
+    kernels.reset_counts()
+    got = scan(points, [n for _, n in frames])
+    assert kernels.counts() == scan.graph_launches
+    for i, (pts, n) in enumerate(frames):
+        for a, b in zip(got, engine(pts, n)):
+            assert torch.equal(a[i], b)
+    with pytest.raises(ValueError, match="max_points"):
+        scan(points[:2], [1, 2])
+
+
+def _step_gate(path, new, ref_new, grad, ref_grad, lr=1e-4):
+    """``chip_smoke.py:step_gate``'s rule for one AdamW step from the same
+    state: the gradient within 5e-3 of its largest (floor 5e-4); the
+    updated leaf within 1e-4 of its largest wherever the gradient exceeds
+    its own difference by 1e-6, and within 2 lr + 1e-6 elsewhere (where
+    the first step's lr * sign(g) may flip)."""
+    gdiff = (grad - ref_grad).abs()
+    gmax = float(ref_grad.abs().max())
+    assert float(gdiff.max()) <= max(5e-3 * gmax, 5e-4), path
+    d = (new - ref_new).abs()
+    big = ref_grad.abs() > gdiff + 1e-6
+    held = float(torch.where(big, d, torch.zeros_like(d)).max())
+    assert held <= 1e-4 * float(ref_new.abs().max()), path
+    assert float(d.max()) <= 2 * lr + 1e-6, path
+
+
+def test_compiled_train_step_equals_eager(dev, tmp_path):
+    """``CompiledTrainStep`` at the tiny configuration (fp32, batch 2):
+    three replays against three eager steps, each pair from the same state
+    (the graph's leaves, moments and count set in place to the eager's
+    before each replay): the loss at 1e-5 relative, every leaf under
+    ``_step_gate``; then a checkpoint of the graph's state resumes an
+    eager step held the same way to the graph's next replay."""
+    from dsvt_ai_trt_tpu_torch.data import synthetic_batch
+    from dsvt_ai_trt_tpu_torch.parallel.training import (
+        CompiledTrainStep, load_train_state, make_train_step,
+        save_train_state)
+    cfg = _tiny_config("fp32")
+    batch = synthetic_batch(np.random.default_rng(3), cfg, 2, device=dev,
+                            n_objects=2, n_ground=200, pts_per_obj=30)
+
+    def fresh():
+        return weights.from_jax_params(weights.random_params(cfg, 3), dev)
+
+    ref, got = fresh(), fresh()
+    opt_e, eager = make_train_step(cfg, ref)
+    compiled = CompiledTrainStep(cfg, got, 2)
+
+    def held(step_e, step_g, ref, got):
+        le, lg = float(step_e(*batch)), float(step_g(*batch))
+        assert abs(lg - le) <= 1e-5 * abs(le)
+        for (path, a), (_, b) in zip(weights.named_leaves(ref),
+                                     weights.named_leaves(got)):
+            _step_gate(weights.keystr(path), b.detach(), a.detach(),
+                       b.grad, a.grad)
+
+    def same_state():
+        with torch.no_grad():
+            for (_, r), (_, t) in zip(weights.named_leaves(ref),
+                                      weights.named_leaves(got)):
+                t.copy_(r)
+                for key in ("exp_avg", "exp_avg_sq"):
+                    compiled.optimizer.state[t][key].copy_(
+                        opt_e.state[r][key])
+            compiled.optimizer.count.copy_(opt_e.count)
+        weights.refold(got)
+
+    compiled.warmup()
+    for k in range(3):
+        if k:
+            same_state()
+        held(eager, compiled, ref, got)
+    assert compiled.replays == 3 and int(compiled.optimizer.count) == 3
+    assert not any(compiled.graph_launches.values())
+    path = save_train_state(str(tmp_path / "state"), got,
+                            compiled.optimizer, step=3)
+    resumed = fresh()
+    opt, step = make_train_step(cfg, resumed)
+    assert load_train_state(path, resumed, opt) == 3
+    held(step, compiled, resumed, got)
+    assert int(compiled.optimizer.count) == int(opt.count) == 4
+    with pytest.raises(ValueError, match="graph takes"):
+        compiled(batch[0][:1], batch[1][:1],
+                 type(batch[2])(*(t[:1] for t in batch[2])))

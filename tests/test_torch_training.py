@@ -421,8 +421,9 @@ def test_trained_weights_reach_inference(tmp_path, precision):
     cfg = tiny_config()
     tparams = weights.from_jax_params(jax_weights.random_params(cfg, 4),
                                       "cpu")
-    before = [[{k: enc[k] for k in FOLDED_KEYS} for enc in block["enc"]]
-              for block in tparams["blocks"]]
+    # copies: refold writes the derived weights in place
+    before = [[{k: enc[k].clone() for k in FOLDED_KEYS}
+               for enc in block["enc"]] for block in tparams["blocks"]]
     _, step = make_train_step(cfg, tparams, device="cpu")
     step(*data.synthetic_batch(np.random.default_rng(4), cfg, 1,
                                device="cpu", **SCENE))
