@@ -118,8 +118,17 @@ Phases (any failure exits non-zero):
      bf16 (B1 on a rank's 400 sets, B2 on its 5 000 pillar rows) pass
      ``parity.py``'s gate against the unsharded bf16 boxes before NMS;
      sp=2 at fp32 equals the unsharded fp32 boxes at 1e-4, with the 117-row
-     level split 58 / 59; each rank's launches over its pass are 2/8/8/1/1 a
-     frame (sp fp32: B3, B4 and nms_peel only); each rank (``multi_rank``) records
+     level split 58 / 59.  Every forward mode runs eager and through its
+     compiled ``Engine`` in each rank (dp: ``make_dp_engine``'s graph;
+     mp and sp: graphs captured in segments, ``capture_segments``, with
+     gloo's collectives run between them): each rank's graph Detections
+     equal its eager ones bit for bit, its launches over each pass are
+     2/8/8/1/1 a frame (sp fp32: B3, B4 and nms_peel only) and its
+     segments a replay 1 + ``dryrun.breaks_per_frame`` (the count the CPU
+     tests pin); a dp=2 training step (fp32, batch 2) replays
+     ``CompiledTrainStep`` 6 times against eager steps from the same
+     state: the loss at 1e-5 relative, every leaf under ``step_gate``, no
+     kernel launched; each rank (``multi_rank``) records
      the inputs of B1 and B2's first call in each mode, and once the ranks
      have exited they are held against the plain versions and timed here,
      as phase 5 holds the main path's (``check_set_attention``,
@@ -128,10 +137,11 @@ Phases (any failure exits non-zero):
      beside two more single-process steps: a repeat (the gradients'
      run-to-run spread) and one with every encoder leaf moved one ulp at
      random (``nudge_``: how far a change of the size another summation
-     order makes moves the gradients).  Per mode and rank: the CUDA-event
-     span, device busy ms and idle share (a trace of the pass), host ms,
-     calls and MB in collectives: two processes sharing one card, not a
-     multi-GPU speed;
+     order makes moves the gradients).  Per mode and rank, eager and
+     graph: ms a frame (a step; medians of 5 alternated samples), the
+     CUDA-event span, device busy ms and idle share (a trace of the pass),
+     host ms, calls and MB in collectives; segments, pool MB and capture
+     seconds: two processes sharing one card, not a multi-GPU speed;
  14. bench: ``python -m dsvt_ai_trt_tpu_torch.bench`` in this process on
      the three frames (Waymo pass on the Waymo base frame), few
      iterations, both parity gates passed (given the suite's rows of phase
@@ -1599,16 +1609,18 @@ def step_gate(key, new, ref_new, grad, ref_grad, lr=1e-4,
 
 def multi_rank(rank, world, device, frames, batch):
     """One spawned rank of the multi phase: ``dryrun.card_modes`` with B1
-    and B2's first call of each mode recorded.  Returns its results and
-    the recorded calls (CUDA tensors; ``torch.save`` carries them to the
-    parent, which holds and times them once the ranks have exited)."""
+    and B2's first call of each mode recorded (an eager warm run of the
+    mode's engine) and the compiled dp step's leaves held by
+    ``step_gate``.  Returns its results and the recorded calls (CUDA
+    tensors; ``torch.save`` carries them to the parent, which holds and
+    times them once the ranks have exited)."""
     from dsvt_ai_trt_tpu_torch.parallel import dryrun
     recorder = Recorder(("set_attention", "encoder_epilogue"),
                         first_only=True)
     with recorder:
         res = dryrun.card_modes(rank, world, device, frames, batch,
                                 lambda mode: setattr(recorder, "frame",
-                                                     mode))
+                                                     mode), step_gate)
     return res, recorder.calls
 
 
@@ -1657,22 +1669,57 @@ def check_multi(engine, frames):
         return {k: (v * frames_per_rank if k in kernels_on else 0)
                 for k, v in PER_FRAME.items()}
 
-    # per rank: 2/8/8/1/1 a frame; sp at fp32 takes B3, B4 and nms_peel
-    # only (B1 and B2 are the bf16/mixed path's); the train step launches
-    # none
+    # per rank: 2/8/8/1/1 a frame, eager and graph; sp at fp32 takes B3,
+    # B4 and nms_peel only (B1 and B2 are the bf16/mixed path's); the train
+    # steps launch none
     expect = {"dp": want(1), "mp_bf16": want(3),
               "sp_fp32": want(1, ("segment_max",) + NMS_KERNELS),
-              "sp_bf16": want(3), "mp_train": want(0)}
+              "sp_bf16": want(3), "dp_train": want(0), "mp_train": want(0)}
+    # segments a replay: 1 + the breaks a frame the CPU tests pin (the
+    # per-frame engines replay one frame; dp's batch engine at mp = 1 and
+    # the dp step break at no forward collective, the step at its
+    # gradients' all-reduce)
+    segments = {"dp": 1 + dryrun.breaks_per_frame(cfg16, "dp"),
+                "mp_bf16": 1 + dryrun.breaks_per_frame(cfg16, "mp"),
+                "sp_fp32": 1 + dryrun.breaks_per_frame(cfg32, "sp"),
+                "sp_bf16": 1 + dryrun.breaks_per_frame(cfg16, "sp"),
+                "dp_train": 2}
+    times = ("span_ms_per_frame", "device_busy_ms_per_frame",
+             "device_idle_share", "collective_host_ms_per_frame",
+             "collective_calls_per_frame", "collective_mbytes_per_frame")
     for mode, counts in expect.items():
         for r, res in enumerate(ranks):
-            check(res[mode]["launches"] == counts, f"multi {mode}: rank {r} "
-                  f"launched {res[mode]['launches']}, expected {counts}")
-        rows = {k: [res[mode].get(k) for res in ranks] for k in (
-            "seconds", "span_ms_per_frame", "device_busy_ms_per_frame",
-            "device_idle_share",
-            "collective_host_ms_per_frame", "collective_calls_per_frame",
-            "collective_mbytes_per_frame")}
+            got = res[mode]
+            check(got["launches"] == counts, f"multi {mode}: rank {r} "
+                  f"launched {got['launches']}, expected {counts}")
+            if "eager_launches" in got:
+                check(got["eager_launches"] == counts, f"multi {mode}: rank "
+                      f"{r} launched {got['eager_launches']} eagerly, "
+                      f"expected {counts}")
+                check(got["graph_equals_eager"], f"multi {mode}: rank {r}'s "
+                      "graph Detections differ from its eager ones")
+            if mode in segments:
+                check(got["segments"] == segments[mode], f"multi {mode}: rank "
+                      f"{r} replays {got['segments']} segments, expected "
+                      f"{segments[mode]}")
+        rows = {k: [res[mode].get(k) for res in ranks]
+                for k in ("seconds",) + times}
         out[mode] = {"launches_per_rank": counts, **rows}
+        if mode in segments:
+            out[mode].update({k: [res[mode][k] for res in ranks] for k in (
+                "segments", "graph_pool_mb", "capture_seconds")})
+            out[mode]["ms_per_frame"] = {
+                m: [res[mode]["ms_per_frame"][m]["median"] for res in ranks]
+                for m in ("eager", "graph")}
+            out[mode]["eager"] = {k: [res[mode]["eager"][k] for res in ranks]
+                                  for k in times}
+    out["dp_train"]["steps"] = [res["dp_train"]["steps"] for res in ranks]
+    check(all(len(res["dp_train"]["steps"]) == TRAIN_STEPS
+              for res in ranks), "multi dp_train: not every replay was held")
+    check(all((a["loss_eager"], a["loss_graph"]) == (b["loss_eager"],
+                                                     b["loss_graph"])
+              for a, b in zip(*out["dp_train"]["steps"])),
+          "multi dp_train: the ranks' losses differ")
 
     t0 = time.perf_counter()
     # dp=2: each rank's frame equals the single-process Engine's

@@ -29,13 +29,26 @@ processes share one card (NCCL refuses two ranks on one GPU).
 Every collective adds its host seconds (the copies, and the wait for the
 device that a copy to the host implies, included) and its bytes to
 ``stats()``; ``reset_stats()`` sets them to 0.
+
+Every collective reaches the transport at exactly two functions,
+``all_reduce`` and ``_all_gather_equal``; the rest pad, slice and
+concatenate around them.  ``intercepted(hook)`` routes those two, on the
+calling thread, to ``hook(kind, x, group)`` (``kind`` "all_reduce" or
+"all_gather") instead of ``transport``: ``runtime.compile.
+capture_segments`` closes its CUDA graph there and records a host step
+that runs ``transport`` at replay into static buffers of ``outputs``.
+While any thread has a hook, a collective reached from a thread without
+one raises (autograd runs a CUDA backward on a thread of its own), so no
+capture holds half a collective.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import threading
 import time
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 import torch.distributed as dist
@@ -82,25 +95,87 @@ class _Timed:
         _STATS["seconds"] += time.perf_counter() - self.t0
 
 
+_LOCAL = threading.local()
+_HOOKED = set()          # idents of the threads that have a hook
+
+
+def _hook():
+    hook = getattr(_LOCAL, "hook", None)
+    if hook is None and _HOOKED:
+        raise RuntimeError(
+            f"a collective on thread {threading.get_ident()} while thread(s) "
+            f"{sorted(_HOOKED)} capture segments: a collective that another "
+            "thread reaches (autograd's backward runs on its own) cannot be "
+            "captured")
+    return hook
+
+
+@contextlib.contextmanager
+def intercepted(hook: Callable):
+    """Route this thread's collectives to ``hook(kind, x, group)``, which
+    returns what ``transport`` would (module docstring)."""
+    if getattr(_LOCAL, "hook", None) is not None:
+        raise RuntimeError("intercepted: this thread already has a hook")
+    ident = threading.get_ident()
+    _LOCAL.hook = hook
+    _HOOKED.add(ident)
+    try:
+        yield hook
+    finally:
+        _HOOKED.discard(ident)
+        del _LOCAL.hook
+
+
+def outputs(kind: str, x: torch.Tensor, group) -> list:
+    """Empty tensors of the shapes, dtype and device that ``transport``
+    returns for ``x``: one like x for "all_reduce", the group's size of
+    them for "all_gather"."""
+    n = 1 if kind == "all_reduce" else dist.get_world_size(group)
+    return [torch.empty(x.shape, dtype=x.dtype, device=x.device)
+            for _ in range(n)]
+
+
+def transport(kind: str, x: torch.Tensor, group, out=None):
+    """Run one collective now: "all_reduce", the sum of x over the group as
+    a new tensor on x's device, or "all_gather", every rank's x (same
+    shapes) in rank order.  With ``out`` (``outputs``' tensors) the result
+    is written there and ``out`` returned."""
+    with _Timed(x.numel() * x.element_size()):
+        if kind == "all_reduce":
+            buf = x.detach().cpu() if _via_host(x, group) \
+                else x.detach().clone(memory_format=torch.contiguous_format)
+            dist.all_reduce(buf, group=group)
+            parts = [buf]
+        else:
+            buf = x.detach().contiguous()
+            if _via_host(x, group):
+                buf = buf.cpu()
+            parts = [torch.empty_like(buf)
+                     for _ in range(dist.get_world_size(group))]
+            dist.all_gather(parts, buf, group=group)
+        if out is None:
+            parts = [p.to(x.device, non_blocking=False) for p in parts]
+        else:
+            for o, p in zip(out, parts):
+                o.copy_(p)
+            parts = out
+    return parts[0] if kind == "all_reduce" else parts
+
+
+def _collective(kind: str, x: torch.Tensor, group):
+    hook = _hook()
+    return transport(kind, x, group) if hook is None \
+        else hook(kind, x, group)
+
+
 def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
     """The sum of ``x`` over the group, as a new tensor on x's device."""
-    with _Timed(x.numel() * x.element_size()):
-        buf = x.detach().cpu() if _via_host(x, group) \
-            else x.detach().clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(buf, group=group)
-        return buf.to(x.device, non_blocking=False)
+    return _collective("all_reduce", x, group)
 
 
 def _all_gather_equal(x: torch.Tensor, group) -> list:
     """``dist.all_gather`` of same-shape tensors, in rank order."""
-    world = dist.get_world_size(group)
-    with _Timed(x.numel() * x.element_size()):
-        buf = x.detach().contiguous()
-        if _via_host(x, group):
-            buf = buf.cpu()
-        parts = [torch.empty_like(buf) for _ in range(world)]
-        dist.all_gather(parts, buf, group=group)
-        return [p.to(x.device) for p in parts]
+    return _collective("all_gather", x, group)
 
 
 class _CopyToTP(torch.autograd.Function):

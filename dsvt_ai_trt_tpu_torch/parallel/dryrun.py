@@ -29,18 +29,24 @@ imports the port and nothing of JAX.
   5. sp=N at ``DEFAULT_CONFIG``'s 468-row grid with reduced caps.
 
 ``card_modes`` is chip_smoke.py's ``multi`` phase (world 2 on ``cuda:0``,
-``DEFAULT_CONFIG`` full caps): dp=2, mp=2 at bf16, sp=2 at fp32 and bf16
-and an mp=2 training step, each rank's kernel launches counted over its
-run (the smoke script records B1 and B2's inputs through ``mark`` and
-holds them against their plain versions).  The other functions are the
-tasks the CPU tests spawn.
+``DEFAULT_CONFIG`` full caps): dp=2, mp=2 at bf16 and sp=2 at fp32 and
+bf16, each eager and through its compiled ``Engine`` (captured in segments
+where a collective lies inside), a dp=2 training step compiled
+(``CompiledTrainStep``) against eager, and an eager mp=2 training step,
+each rank's kernel launches counted over its run (the smoke script records
+B1 and B2's inputs through ``mark`` and holds them against their plain
+versions).  The other functions are the tasks the CPU tests spawn
+(``graph_task`` and ``compiled_step_task`` run the compiled programs'
+eager counterparts under a ``SyncGuard`` and a ``BreakRecorder``).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
+import statistics
 import tempfile
 import time
 from typing import Callable, Dict, Optional
@@ -50,12 +56,17 @@ import torch
 import torch.distributed as dist
 
 from .. import kernels, weights
-from ..config import DEFAULT_CONFIG, DSVTConfig, WindowSpec
+from ..config import (BACKBONE2D_STAGES, DEFAULT_CONFIG, DSVTConfig,
+                      WindowSpec)
 from ..model.detector import forward, forward_spatial
+from ..runtime.compile import Engine, SyncGuard
 from . import collectives, spatial
 from .collectives import init_group
 from .mesh import gather_params, make_dp_engine, make_mesh, rank_params
-from .training import Targets, make_train_step, random_targets
+from .training import (CompiledTrainStep, Targets, make_train_step,
+                       random_targets)
+
+TRAIN_REPLAYS = 6    # card_modes: dp_train's replays held to eager steps
 
 
 # --------------------------------------------------------------------------
@@ -205,6 +216,124 @@ def conv_rows_task(rank, world, device, x, w, b, stride: int, scale: int,
         else:
             rows, scale = x.shape[2] // stride, scale * stride
         return spatial.gather_rows(y, rows, scale, dim=2).numpy()
+
+
+def breaks_per_frame(cfg: DSVTConfig, mode: str) -> int:
+    """The collectives that one frame's forward reaches on each rank, so the
+    graph breaks of its segmented capture (``runtime.compile.
+    capture_segments``): "dp" (mp = 1) none; "mp" the heads' all-gather of
+    every encoder at bf16/mixed, two ``reduce_from_tp`` of every encoder at
+    fp32; "sp" five all-gathers a block (each encoder's q/k/v table and set
+    slots, the block's output), a halo exchange for each 3x3 conv of the
+    BEV backbone (two a residual unit) and of the lazy head (three), and
+    the head's two maps gathered whole.  tests/test_torch_mesh_graph.py
+    counts them on the CPU."""
+    encoders = 2 * cfg.num_blocks
+    units = sum(n for n, _c, _s in BACKBONE2D_STAGES)
+    return {"dp": 0,
+            "mp": encoders * (1 if cfg.precision in ("bf16", "mixed") else 2),
+            "sp": 5 * cfg.num_blocks + 2 * units + 3 + 2}[mode]
+
+
+class BreakRecorder:
+    """A ``collectives.intercepted`` hook that runs each collective now
+    (``collectives.transport``), paused in ``guard`` if one is given, and
+    records per break its kind with the shapes and dtypes of the static
+    buffers a segmented capture would make (``collectives.outputs``) and of
+    what the transport returned."""
+
+    def __init__(self, guard=None):
+        self.guard = guard
+        self.breaks = []
+
+    def __call__(self, kind, x, group):
+        paused = (self.guard.exempt() if self.guard is not None
+                  else contextlib.nullcontext())
+        with paused:
+            static = collectives.outputs(kind, x, group)
+            got = collectives.transport(kind, x, group)
+        parts = [got] if kind == "all_reduce" else got
+        self.breaks.append({
+            "kind": kind,
+            "static": [(tuple(t.shape), str(t.dtype)) for t in static],
+            "eager": [(tuple(t.shape), str(t.dtype)) for t in parts]})
+        return got
+
+
+def graph_task(rank, world, device, cfg: DSVTConfig, params, points, nums,
+               mode: str) -> dict:
+    """Frames through the compiled counterpart of ``mode`` over the whole
+    group: "dp" ``make_dp_engine`` (dp = world, mp = 1), "mp" ``Engine(...,
+    tp=)`` (dp = 1, mp = world), "sp" ``Engine(..., spatial=)``, each
+    frame's run inside a ``SyncGuard`` (the kernels' plain versions and the
+    transports exempt) with a ``BreakRecorder``.  On the CPU the engines
+    run their eager forwards, the program a card captures.  Returns the
+    Detections (dp: gathered, after the guarded share), this rank's guard
+    hits and breaks, and the breaks a frame."""
+    pts = torch.as_tensor(points, device=device)
+    num = torch.as_tensor(nums, device=device)
+    if mode == "dp":
+        mesh = make_mesh(world, 1)
+        run = make_dp_engine(params, cfg, mesh, True, device)
+        frames = [lambda: run(pts, num)]
+        share = len(points) // world
+    elif mode == "mp":
+        mesh = make_mesh(1, world)
+        engine = Engine(rank_params(params, mesh, device), cfg, device,
+                        True, tp=mesh.mp_group)
+        frames = [lambda b=b: engine(pts[b], num[b])
+                  for b in range(len(points))]
+        share = 1
+    else:
+        engine = Engine(weights.from_jax_params(params, device), cfg, device,
+                        True, spatial=dist.group.WORLD)
+        frames = [lambda b=b: engine(pts[b], num[b])
+                  for b in range(len(points))]
+        share = 1
+    guard, breaks, out = SyncGuard(), [], []
+    for frame in frames:
+        recorder = BreakRecorder(guard)
+        with guard.plain_versions_exempt(), guard, \
+                collectives.intercepted(recorder):
+            out.append(_dets(frame()))
+        breaks.append(recorder.breaks)
+    if mode == "dp":
+        res = _dets(run(pts, num, gather=True))
+    else:
+        res = {k: np.stack([o[k] for o in out]) for k in out[0]}
+    return {**res, "hits": guard.hits, "breaks": breaks[0],
+            "breaks_per_frame": [len(b) / share for b in breaks]}
+
+
+def compiled_step_task(rank, world, device, cfg: DSVTConfig, params, points,
+                       nums, targets, steps: int = 3) -> dict:
+    """``CompiledTrainStep`` under a dp = world mesh (mp = 1) against
+    ``make_train_step(..., mesh=)``'s eager step, each on its own copy of
+    the weights, ``steps`` steps of the global batch; the first compiled
+    step inside a ``SyncGuard`` with a ``BreakRecorder``.  Returns both
+    losses a step, whether every leaf and gradient ended bit-equal, the
+    guard's hits and the breaks of a step."""
+    mesh = make_mesh(world, 1)
+    p_graph = rank_params(params, mesh, device)
+    p_eager = rank_params(params, mesh, device)
+    compiled = CompiledTrainStep(cfg, p_graph, len(points), mesh=mesh,
+                                 device=device)
+    _opt, eager = make_train_step(cfg, p_eager, mesh=mesh, device=device)
+    batch = (torch.as_tensor(points, device=device),
+             torch.as_tensor(nums, device=device),
+             Targets(*(torch.as_tensor(t, device=device) for t in targets)))
+    guard = SyncGuard()
+    recorder = BreakRecorder(guard)
+    with guard, collectives.intercepted(recorder):
+        first = compiled(*batch)
+    losses = [(float(first), float(eager(*batch)))]
+    for _ in range(steps - 1):
+        losses.append((float(compiled(*batch)), float(eager(*batch))))
+    same = all(torch.equal(a, b) and torch.equal(a.grad, b.grad)
+               for (_, a), (_, b) in zip(weights.named_leaves(p_graph),
+                                         weights.named_leaves(p_eager)))
+    return {"losses": losses, "bit_equal": same, "hits": guard.hits,
+            "breaks": recorder.breaks}
 
 
 # --------------------------------------------------------------------------
@@ -359,96 +488,221 @@ def _measured(fn, n_frames: int):
         "collective_mbytes_per_frame": comm["bytes"] / 1e6 / n_frames}
 
 
+def _alternated_ms(fns: Dict[str, Callable], n_frames: int,
+                   samples: int = 5) -> dict:
+    """ms a frame of each of ``fns`` (one pass of ``n_frames`` frames a
+    sample, host clock to a synchronise), as the median of ``samples``
+    samples taken in alternating order; every rank runs the same order."""
+    names = list(fns)
+    ms = {m: [] for m in names}
+    for rep in range(samples):
+        for m in (names if rep % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[m]()
+            torch.cuda.synchronize()
+            ms[m].append((time.perf_counter() - t0) * 1e3 / n_frames)
+    return {m: {"median": statistics.median(v), "samples": v}
+            for m, v in ms.items()}
+
+
+def _same(a, b) -> bool:
+    """Bit-equal Detections (or lists of them)."""
+    if isinstance(a, list):
+        return len(a) == len(b) and all(map(_same, a, b))
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _eager_and_graph(eager, graph, engine, n_frames: int) -> tuple:
+    """A forward mode through its eager path and its graph: an eager pass
+    (the first calls of the mode's kernels run on real frames), the
+    graph's first call, which captures it (``Engine.warmup``), then one
+    measured pass of each (``_measured``), each rank's graph Detections
+    held bit-equal to its eager ones there, and ms a frame of each
+    (``_alternated_ms``).  Returns the graph pass's Detections and the
+    mode's record."""
+    eager()
+    graph()
+    eager_out, eager_counts, eager_times = _measured(eager, n_frames)
+    graph_out, counts, graph_times = _measured(graph, n_frames)
+    return graph_out, {
+        "launches": counts, "eager_launches": eager_counts,
+        "frames_per_rank": n_frames,
+        "graph_equals_eager": _same(graph_out, eager_out),
+        "segments": engine.segments,
+        "graph_pool_mb": engine.graph_pool_bytes / 2**20,
+        "capture_seconds": engine.capture_seconds,
+        "ms_per_frame": _alternated_ms({"eager": eager, "graph": graph},
+                                       n_frames),
+        "eager": eager_times, **graph_times}
+
+
 def card_modes(rank, world, device, frames: Dict[str, tuple], batch,
-               mark: Optional[Callable[[str], None]] = None) -> dict:
+               mark: Optional[Callable[[str], None]] = None,
+               gate: Optional[Callable] = None) -> dict:
     """chip_smoke.py's multi phase on a world of 2 sharing one card, at
     ``DEFAULT_CONFIG`` full caps and the seeded weights of its main path
     (``random_params(cfg, 0)``).  ``frames``: the three bench frames;
-    ``batch``: (points, nums, targets) of the training step, NumPy;
+    ``batch``: (points, nums, targets) of the training steps, NumPy;
     ``mark``, if given, is called with each mode's name as the mode
-    starts.  Per mode, this rank's results for the parent to hold against
-    its single-process runs."""
+    starts; ``gate(key, new, ref_new, grad, ref_grad, what=...)``, if
+    given, holds each leaf of a compiled dp step against the eager one.
+
+    Each forward mode runs its eager path and its compiled one, an
+    ``Engine`` whose graph is captured in segments where the mode has a
+    collective inside (``_eager_and_graph``): dp=2 (``make_dp_engine``,
+    one frame a rank, mp = 1: one graph), mp=2 at bf16 (``Engine(...,
+    tp=)``), sp=2 at fp32 and bf16 (``Engine(..., spatial=)``).  dp_train
+    replays ``CompiledTrainStep`` under the dp=2 mesh (fp32, batch 2)
+    against the eager step, from the same state each step; mp_train stays
+    the eager mp=2 step (a collective inside its backward).  Per mode,
+    this rank's results for the parent to hold against its single-process
+    runs."""
     mark = mark or (lambda _mode: None)
     if world != 2:
         raise ValueError("card_modes runs on a world of 2")
     names = list(frames)
-    pts = np.stack([frames[k][0] for k in names])
-    nums = np.asarray([frames[k][1] for k in names], np.int32)
+    pts = torch.as_tensor(np.stack([frames[k][0] for k in names]),
+                          device=device)
+    nums = torch.as_tensor([frames[k][1] for k in names], dtype=torch.int32,
+                           device=device)
     raw = weights.random_params(DEFAULT_CONFIG, 0)
     bf16 = dataclasses.replace(DEFAULT_CONFIG, precision="bf16")
     fp32 = DEFAULT_CONFIG
+    every = range(len(names))
+    dp_mesh, mp_mesh = make_mesh(2, 1), make_mesh(1, 2)
     res = {}
-    t0 = time.perf_counter()
 
-    # dp=2: the two dense frames, one per rank, through make_dp_engine
+    # dp=2: the two dense frames, one a rank, through make_dp_engine
     mark("dp")
-    dense = [names.index("dense_seed0"), names.index("dense_seed2")]
-    run = make_dp_engine(raw, bf16, make_mesh(2, 1), True, device)
-    run(pts[dense], nums[dense])
-    dets, counts, times = _measured(
-        lambda: run(pts[dense], nums[dense], gather=True), 1)
-    res["dp"] = {**_dets(dets), "launches": counts, "frames_per_rank": 1,
-                 **times, "seconds": time.perf_counter() - t0}
     t0 = time.perf_counter()
+    dense = [names.index("dense_seed0"), names.index("dense_seed2")]
+    run = make_dp_engine(raw, bf16, dp_mesh, True, device)
+    mine = [dense[rank]]
+    eager = lambda: run.engines[1].eager(pts[mine], nums[mine])  # noqa: E731
+    graph = lambda: run(pts[dense], nums[dense])                 # noqa: E731
+    run(pts[dense], nums[dense])                  # makes the engine
+    _out, res["dp"] = _eager_and_graph(eager, graph, run.engines[1], 1)
+    res["dp"].update(_dets(run(pts[dense], nums[dense], gather=True)))
+    res["dp"]["seconds"] = time.perf_counter() - t0
+    del run, eager, graph
 
     # mp=2, bf16: the gather route; B1 on H/2 heads, B2 on gathered heads
     mark("mp_bf16")
-    mesh = make_mesh(1, 2)
-    p = rank_params(raw, mesh, device)
-    one = lambda b, nms: forward(p, pts[b], nums[b], bf16, nms,   # noqa: E731
-                                 device, tp=mesh.mp_group)
-    one(0, True)
-    every = range(len(names))
-    got, counts, times = _measured(
-        lambda: [_dets(one(b, True)) for b in every], len(names))
-    res["mp_bf16"] = {
-        "launches": counts, "frames_per_rank": len(names), **times,
-        "before_nms": [_dets(one(b, False)) for b in every],
-        "with_nms": got, "seconds": time.perf_counter() - t0}
-    del p
+    t0 = time.perf_counter()
+    engine = Engine(rank_params(raw, mp_mesh, device), bf16, device, True,
+                    tp=mp_mesh.mp_group)
+    got, res["mp_bf16"] = _eager_and_graph(
+        lambda: [engine.eager(pts[b], nums[b]) for b in every],
+        lambda: [engine(pts[b], nums[b]) for b in every], engine, len(names))
+    res["mp_bf16"].update(
+        with_nms=[_dets(d) for d in got],
+        before_nms=[_dets(forward(engine.params, pts[b], nums[b], bf16,
+                                  False, device, tp=mp_mesh.mp_group))
+                    for b in every],
+        seconds=time.perf_counter() - t0)
+    del engine
 
     # sp=2 at fp32 (B3 and B4 on the path) and at bf16 (all four)
     for tag, cfg in (("sp_fp32", fp32), ("sp_bf16", bf16)):
         mark(tag)
         t0 = time.perf_counter()
-        params = weights.from_jax_params(raw, device)
-        sp_one = lambda b, nms: forward_spatial(  # noqa: E731
-            params, pts[b], nums[b], cfg, nms, device)
+        engine = Engine(weights.from_jax_params(raw, device), cfg, device,
+                        True, spatial=dist.group.WORLD)
         run_frames = [0] if tag == "sp_fp32" else list(every)
-        sp_one(0, True)
-        got, counts, times = _measured(
-            lambda: [_dets(sp_one(b, True)) for b in run_frames],
+        got, res[tag] = _eager_and_graph(
+            lambda: [engine.eager(pts[b], nums[b]) for b in run_frames],
+            lambda: [engine(pts[b], nums[b]) for b in run_frames], engine,
             len(run_frames))
         with spatial.spatial_sharding():
             coarse = spatial.my_rows(fp32.grid_size[1] // spatial.BEV_STRIDE)
-        res[tag] = {"launches": counts, "frames_per_rank": len(run_frames),
-                    "with_nms": got, "coarse_rows": coarse, **times}
+        res[tag].update(with_nms=[_dets(d) for d in got],
+                        coarse_rows=coarse)
         if tag == "sp_bf16":
-            res[tag]["before_nms"] = [_dets(sp_one(b, False))
-                                      for b in run_frames]
+            res[tag]["before_nms"] = [_dets(forward_spatial(
+                engine.params, pts[b], nums[b], cfg, False, device))
+                for b in run_frames]
         res[tag]["seconds"] = time.perf_counter() - t0
-        del params
+        del engine
 
-    # mp=2 training step at fp32, batch 2 (Megatron route; no kernel)
-    mark("mp_train")
-    mesh = make_mesh(1, 2)
+    b_pts, b_nums, b_tg = (torch.as_tensor(batch[0], device=device),
+                           torch.as_tensor(batch[1], device=device),
+                           Targets(*(torch.as_tensor(t, device=device)
+                                     for t in batch[2])))
     with torch.inference_mode(False):
-        p = rank_params(raw, mesh, device)
-        _opt, step = make_train_step(fp32, p, mesh=mesh, device=device)
-        b_pts, b_nums, b_tg = batch
+        # dp=2 training step at fp32, batch 2 (1 frame a rank): replays of
+        # CompiledTrainStep against eager steps from the same state
+        mark("dp_train")
+        t0 = time.perf_counter()
+        p_eager = rank_params(raw, dp_mesh, device)
+        p_graph = rank_params(raw, dp_mesh, device)
+        opt, eager = make_train_step(fp32, p_eager, mesh=dp_mesh,
+                                     device=device)
+        compiled = CompiledTrainStep(fp32, p_graph, len(b_pts),
+                                     mesh=dp_mesh, device=device)
+        ref_leaves = weights.named_leaves(p_eager)
+        leaves = weights.named_leaves(p_graph)
+        kernels.reset_counts()
+        compiled.warmup()
+        rows = []
+        for k in range(TRAIN_REPLAYS):
+            if k:                         # the eager step's state, in place
+                with torch.no_grad():
+                    for (_, r), (_, t) in zip(ref_leaves, leaves):
+                        t.copy_(r)
+                        for key in ("exp_avg", "exp_avg_sq"):
+                            compiled.optimizer.state[t][key].copy_(
+                                opt.state[r][key])
+                    compiled.optimizer.count.copy_(opt.count)
+                weights.refold(p_graph)
+            want = float(eager(b_pts, b_nums, b_tg))
+            got = float(compiled(b_pts, b_nums, b_tg))
+            if abs(got - want) > 1e-5 * abs(want):
+                raise AssertionError(f"dp_train: replay {k} loss {got}, "
+                                     f"the eager step's {want}")
+            diffs = [gate(weights.keystr(path), t.detach().cpu().numpy(),
+                          r.detach().cpu().numpy(), t.grad.cpu().numpy(),
+                          r.grad.cpu().numpy(),
+                          what=f"multi dp_train rank {rank}: replay {k}")
+                     for (path, r), (_, t) in zip(ref_leaves, leaves)] \
+                if gate is not None else [(0.0, 0.0)]
+            rows.append({"loss_eager": want, "loss_graph": got,
+                         "grad_rel_diff_max": max(d[0] for d in diffs),
+                         "leaf_rel_diff_max": max(d[1] for d in diffs)})
+        torch.cuda.synchronize()
+        launched = kernels.counts()
+        step_args = (b_pts, b_nums, b_tg)
+        eager_fn = lambda: eager(*step_args)        # noqa: E731
+        graph_fn = lambda: compiled(*step_args)     # noqa: E731
+        _o, _c, eager_times = _measured(eager_fn, 1)
+        _o, _c, graph_times = _measured(graph_fn, 1)
+        res["dp_train"] = {
+            "launches": launched, "steps": rows,
+            "replays": compiled.replays, "segments": compiled.segments,
+            "graph_pool_mb": compiled.graph_pool_bytes / 2**20,
+            "capture_seconds": compiled.capture_seconds,
+            "ms_per_frame": _alternated_ms({"eager": eager_fn,
+                                            "graph": graph_fn}, 1),
+            "eager": eager_times, **graph_times,
+            "seconds": time.perf_counter() - t0}
+        del compiled, eager, opt, p_eager, p_graph, ref_leaves, leaves
+        torch.cuda.empty_cache()
+
+        # mp=2 training step at fp32, batch 2 (Megatron route; no kernel):
+        # eager, its collectives run inside the backward
+        mark("mp_train")
+        p = rank_params(raw, mp_mesh, device)
+        _opt, step = make_train_step(fp32, p, mesh=mp_mesh, device=device)
         torch.cuda.synchronize()
         kernels.reset_counts()
         t0 = time.perf_counter()
-        loss = float(step(
-            torch.as_tensor(b_pts, device=device),
-            torch.as_tensor(b_nums, device=device),
-            Targets(*(torch.as_tensor(t, device=device) for t in b_tg))))
+        loss = float(step(b_pts, b_nums, b_tg))
         seconds = time.perf_counter() - t0
         counts = kernels.counts()
         res["mp_train"] = {"loss": loss, "launches": counts,
                            "step_seconds": seconds}
         for key, grads in (("leaves", False), ("grads", True)):
-            whole = gather_params(p, mesh, grads)
+            whole = gather_params(p, mp_mesh, grads)
             res["mp_train"][key] = ({k: v.cpu().numpy()
                                      for k, v in whole.items()}
                                     if rank == 0 else None)

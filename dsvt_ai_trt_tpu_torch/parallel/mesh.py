@@ -1,9 +1,9 @@
 """Device-mesh parallelism, port of the JAX package's parallel/mesh.py.
 
   * **dp**: data parallel over frames.  Each dp rank runs its share of a
-    batch through ``model.detector.forward_batch``; no collective inside a
-    frame.  The training step all-reduces the gradients
-    (parallel/training.py).
+    batch through an ``Engine`` of ``model.detector.forward_batch`` (a
+    replayed CUDA graph on the card); no collective inside a frame.  The
+    training step all-reduces the gradients (parallel/training.py).
   * **mp**: tensor parallel (Megatron) over the attention heads and the
     FFN hidden width: wq/wk/wv and ffn_w1 split by columns, wo and ffn_w2
     by rows (``param_shardings``, the JAX rules).  The collectives GSPMD
@@ -27,9 +27,9 @@ import torch
 import torch.distributed as dist
 
 from ..config import DSVTConfig
-from ..model.detector import forward_batch
 from ..ops import encoder_kernel
 from ..ops.postprocess import Detections
+from ..runtime.compile import Engine
 from .collectives import all_gather_rows
 
 COL = ("wq", "wk", "wv", "ffn_w1")
@@ -180,15 +180,22 @@ def check_heads(cfg: DSVTConfig, mesh: Mesh) -> None:
 
 def make_dp_engine(params: Dict, cfg: DSVTConfig, mesh: Mesh,
                    with_nms: bool = False, device="cuda"):
-    """Batched, dp-sharded inference.  ``params`` are the whole NumPy
-    params; each rank keeps its own (``rank_params``).
+    """Batched, dp-sharded inference: the JAX package's jitted
+    ``make_dp_engine``.  ``params`` are the whole NumPy params; each rank
+    keeps its own (``rank_params``).
 
     Returns ``run(points [B, N, 4], num_points [B], gather=False)``: dp
     rank d runs frames [d*B/dp, (d+1)*B/dp) and returns their stacked
-    ``Detections``; ``gather=True`` all-gathers them over the dp group,
-    so every rank returns all B frames."""
+    ``Detections``; ``gather=True`` all-gathers them over the dp group
+    (eagerly, after the run), so every rank returns all B frames.  The
+    share runs through an ``Engine(..., batch=B/dp, tp=mesh.mp_group)``
+    made the first time a batch size is seen: on the card a replayed graph
+    (in segments under mp > 1), on the CPU ``forward_batch``.  Every rank
+    calls ``run`` in step.  ``run.engines`` maps each share to its
+    engine."""
     check_heads(cfg, mesh)
     rank_p = rank_params(params, mesh, device)
+    engines: Dict[int, Engine] = {}
 
     def run(points, num_points, gather: bool = False) -> Detections:
         B = len(points)
@@ -197,15 +204,18 @@ def make_dp_engine(params: Dict, cfg: DSVTConfig, mesh: Mesh,
                              f"over dp={mesh.dp}")
         share = B // mesh.dp
         lo = mesh.dp_rank * share
-        dets = forward_batch(rank_p, points[lo:lo + share],
-                             num_points[lo:lo + share], cfg, with_nms,
-                             device, tp=mesh.mp_group)
+        if share not in engines:
+            engines[share] = Engine(rank_p, cfg, device, with_nms,
+                                    batch=share, tp=mesh.mp_group)
+        dets = engines[share](points[lo:lo + share],
+                              num_points[lo:lo + share])
         if gather and mesh.dp > 1:
             counts = [share] * mesh.dp
             dets = Detections(*(all_gather_rows(t, counts, mesh.dp_group)
                                 for t in dets))
         return dets
 
+    run.engines = engines
     return run
 
 

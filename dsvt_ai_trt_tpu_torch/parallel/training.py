@@ -23,7 +23,9 @@ between the packages both ways.
 
 ``CompiledTrainStep`` is ``jax.jit(train_step)`` for the card: the whole
 step (loss, backward, clip, AdamW, refold) captured once as a CUDA graph
-over static input buffers, then replayed a call.  A replay reads and
+over static input buffers, then replayed a call; under a dp mesh (mp = 1)
+as two graphs with the gradients' all-reduce between them
+(``runtime.compile.capture_segments``).  A replay reads and
 writes only the addresses it captured, so every piece of state a step
 touches is updated in place, never replaced: the parameters, their
 gradients, the moments and the count, the derived weights (``refold``)
@@ -41,12 +43,13 @@ checkpoint keeps no RNG state (reading the card's would stop a capture).
 ``make_train_step(..., mesh=...)`` trains over a ``parallel.mesh`` mesh.
 dp: each dp rank takes its B/dp frames of the global batch, and after the
 backward the gradients are averaged over the dp group (one all-reduce of
-every gradient, flattened), which is the gradient of JAX's global mean of
-the per-frame losses when the shares are equal; the returned loss is that
-global mean.  mp: the encoders run Megatron's route
-(model/backbone3d.py, ``live_weights``), each rank steps AdamW on its own
-shards and on its copy of the replicated leaves (their gradients are whole
-and equal on every mp rank), and ``weights.refold`` refolds each shard.
+every gradient, flattened, with the loss as its last element), which is
+the gradient of JAX's global mean of the per-frame losses when the shares
+are equal; the returned loss is that global mean.  mp: the encoders run
+Megatron's route (model/backbone3d.py, ``live_weights``), each rank steps
+AdamW on its own shards and on its copy of the replicated leaves (their
+gradients are whole and equal on every mp rank), and ``weights.refold``
+refolds each shard.
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ from .. import kernels
 from ..config import DSVTConfig
 from ..model.detector import float_stages, forward_train, partition_frame
 from ..ops.common import resolve_device
-from ..runtime.compile import capture_graph
+from ..runtime.compile import capture_graph, capture_segments
 from ..weights import (keystr, named_leaves, refold, to_numpy_leaf,
                        to_torch_leaf, trainable)
 from .collectives import all_reduce
@@ -293,12 +296,14 @@ def make_train_step(cfg: DSVTConfig, params, optimizer=None,
             if t.grad is None:
                 t.grad = torch.zeros_like(t)
         loss = loss.detach()
-        if dp > 1:
-            flat = all_reduce(torch.cat([t.grad.reshape(-1) for t in leaves]),
+        if dp > 1:             # gradients and loss: one all-reduce
+            flat = all_reduce(torch.cat([t.grad.reshape(-1) for t in leaves]
+                                        + [loss.reshape(1)]),
                               mesh.dp_group) / dp
-            for t, g in zip(leaves, flat.split([t.numel() for t in leaves])):
+            *grads, loss = flat.split([t.numel() for t in leaves] + [1])
+            for t, g in zip(leaves, grads):
                 t.grad.copy_(g.view_as(t))
-            loss = all_reduce(loss, mesh.dp_group) / dp
+            loss = loss.reshape(())
         if max_grad_norm is not None:
             clip_by_global_norm([t.grad for t in leaves], max_grad_norm,
                                 [t.grad for t in sharded], tp)
@@ -333,14 +338,22 @@ class CompiledTrainStep:
     docstring).  The optimizer must update in tensor ops (``AdamW``; the
     default), its learning rate fixed or a ``schedule`` of its count.
 
-    On the CPU a call runs the eager step.  Under a ``mesh`` it raises
-    ``ValueError``: gloo's host copies cannot be captured, so sharded steps
-    stay on ``make_train_step``.  A capture or replay that fails raises;
+    On the CPU a call runs the eager step.  Under a dp ``mesh`` (mp = 1)
+    the arguments are the global batch, of which the rank takes its share,
+    and the step is captured in segments (``runtime.compile.
+    capture_segments``): graph 1 (zeroed gradients, the loss, the backward,
+    zero gradients for unused leaves), the all-reduce of the gradients and
+    the loss between the replays' graphs, graph 2 (clip, AdamW, refold).
+    Every dp rank calls the step in step.  Under mp > 1 it raises
+    ``ValueError``: Megatron's pair all-reduces inside the backward, on
+    autograd's own thread, where no graph can be closed; those steps stay
+    on ``make_train_step``.  A capture or replay that fails raises;
     nothing falls back to the eager step on the card.  Recorded:
     ``capture_seconds``, ``graph_pool_bytes`` (the device memory the
     capture reserved: the graph's pool, which holds a whole step's
     intermediates), ``graph_launches`` (hand-written kernels a replay
-    launches: none, training runs the plain paths) and ``replays``."""
+    launches: none, training runs the plain paths), ``segments`` (graphs
+    a replay launches) and ``replays``."""
 
     WARM_RUNS = 2
 
@@ -348,20 +361,23 @@ class CompiledTrainStep:
                  dir_weight: float = 0.25, aux_weight: float = 0.25,
                  max_grad_norm: Optional[float] = None,
                  remat: Optional[bool] = None, device="cuda", mesh=None):
-        if mesh is not None:
-            raise ValueError("CompiledTrainStep: a sharded step cannot be "
-                             "captured (gloo copies through the host); use "
-                             "make_train_step(..., mesh=mesh)")
+        if mesh is not None and mesh.mp > 1:
+            raise ValueError(
+                "CompiledTrainStep: under mp > 1 Megatron's pair all-reduces "
+                "inside the backward, on autograd's own thread, where a "
+                "segmented capture cannot close its graph; use "
+                "make_train_step(..., mesh=mesh)")
         self.cfg, self.params, self.batch = cfg, params, batch
+        self.mesh = mesh if mesh is not None and mesh.dp > 1 else None
         self.device = resolve_device(device)
         self.remat = self.device.type == "cuda" if remat is None else remat
         self.loss_weights = (dir_weight, aux_weight)
         self.optimizer, self.eager = make_train_step(
             cfg, params, optimizer, dir_weight, aux_weight, max_grad_norm,
-            self.remat, self.device)
+            self.remat, self.device, self.mesh)
         self._graph = None
         self.graph_launches = {}
-        self.capture_seconds = self.graph_pool_bytes = None
+        self.capture_seconds = self.graph_pool_bytes = self.segments = None
         self.replays = 0
 
     def __call__(self, points, num_points, targets: Targets) -> torch.Tensor:
@@ -398,15 +414,23 @@ class CompiledTrainStep:
         points, num, *targets = self._inputs
         targets = Targets(*targets)
         leaves = trainable(self.params)
+        rows = slice(None)               # the warm runs take this rank's share
+        if self.mesh is not None:
+            share = B // self.mesh.dp
+            rows = slice(self.mesh.dp_rank * share,
+                         (self.mesh.dp_rank + 1) * share)
 
         def forward_backward():
-            loss = batched_loss(self.params, points, num, targets, cfg,
+            loss = batched_loss(self.params, points[rows], num[rows],
+                                Targets(*(t[rows] for t in targets)), cfg,
                                 self.remat, *self.loss_weights, device=dev)
             torch.autograd.grad(loss, leaves, allow_unused=True)
 
+        capture = capture_graph if self.mesh is None else capture_segments
         self._graph, self._loss, self.graph_launches, self.graph_pool_bytes \
-            = capture_graph(lambda: self.eager(points, num, targets),
-                            forward_backward, dev, self.WARM_RUNS)
+            = capture(lambda: self.eager(points, num, targets),
+                      forward_backward, dev, self.WARM_RUNS)
+        self.segments = 1 if self.mesh is None else self._graph.segments
         self.capture_seconds = time.perf_counter() - t0
         return self
 

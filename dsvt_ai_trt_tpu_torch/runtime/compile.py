@@ -28,8 +28,19 @@ JAX package's jitted ``forward_scan`` (``run_frames_scan``).
 ``capture_graph`` is the capture itself, which the compiled training step
 (``parallel.training.CompiledTrainStep``) shares.  ``forward`` has static
 shapes and reads nothing back to the host (NMS's rounds run inside kernel
-nms_peel), which is what capture requires.  The graph is made when the engine warms up, never
-stored: a ``jax.export`` blob is compiled on its device when loaded too.
+nms_peel), which is what capture requires; ``SyncGuard`` finds on the CPU
+what no capture can hold.  The graph is made when the engine warms up,
+never stored: a ``jax.export`` blob is compiled on its device when loaded
+too.
+
+A program with collectives in it (the tensor- and spatially-sharded
+forwards, ``Engine(..., tp=)`` / ``Engine(..., spatial=)``, and the dp
+training step) is captured in segments (``capture_segments``): the graph
+closes at each collective, the collective runs between two graph launches
+at replay, through its group's own transport (gloo: a copy to the host,
+the exchange, a copy back), into static buffers, and the next graph reads
+them.
+
 Not here, on purpose: ``torch.export``, which cannot see inside the
 ``ctypes`` kernels.  Nor does the JAX package's
 ``enable_persistent_cache`` have a counterpart: ``kernels.py`` already
@@ -38,20 +49,28 @@ keeps each build under its digest.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import logging
 import os
 import time
+import traceback
 from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from .. import kernels
 from ..config import DSVTConfig
 from ..model.detector import forward, forward_batch
+from ..ops import (attention_kernel, encoder_kernel, nms_kernel, nms_peel,
+                   segment)
 from ..ops.common import resolve_device
 from ..ops.postprocess import Detections
+from ..parallel import collectives
+from ..parallel.spatial import spatial_sharding
 from ..weights import from_jax_params
 
 log = logging.getLogger("dsvt_torch.compile")
@@ -154,6 +173,19 @@ def capture_graph(fn, warm, device, warm_runs: int):
     tensors live in the graph's pool and each replay rewrites them, the
     kernel launches the capture recorded (``kernels.captured``), the device
     memory the capture reserved: the graph's private pool)."""
+    before = _warm(warm, device, warm_runs)
+    graph = torch.cuda.CUDAGraph()
+    with kernels.captured() as launches, torch.cuda.graph(graph):
+        out = fn()
+    return (graph, out, dict(launches),
+            torch.cuda.memory_reserved(device) - before)
+
+
+def _warm(warm, device, warm_runs: int) -> int:
+    """``capture_graph``'s warm runs on a side stream, then a garbage
+    collection and an empty cache; returns the device memory reserved after
+    them.  The collection frees unreachable graphs now: one freed while a
+    capture is open invalidates it (``torch.cuda.graph`` collects too)."""
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
@@ -161,13 +193,174 @@ def capture_graph(fn, warm, device, warm_runs: int):
             warm()
     torch.cuda.current_stream(device).wait_stream(side)
     torch.cuda.synchronize(device)
+    gc.collect()
     torch.cuda.empty_cache()
-    before = torch.cuda.memory_reserved(device)
-    graph = torch.cuda.CUDAGraph()
-    with kernels.captured() as launches, torch.cuda.graph(graph):
-        out = fn()
-    return (graph, out, dict(launches),
+    return torch.cuda.memory_reserved(device)
+
+
+class SegmentedGraph:
+    """A program captured in segments (``capture_segments``): ``graphs``,
+    the CUDA graphs in capture order, all in one private pool, and
+    ``steps``, the host step that runs after each graph but the last (one
+    collective, through ``collectives.transport``, from the tensor the
+    capture saw into static buffers the next graph reads).  ``replay()``
+    runs them in that order on the current stream.  A graph may reuse a
+    block of the pool that an earlier graph freed during the capture; that
+    is safe only because every replay runs the graphs in capture order,
+    one after another on one stream.  Each step's copy to the host waits
+    for the graphs before it, so a replay of k segments waits k - 1 times:
+    gloo's cost."""
+
+    def __init__(self):
+        self.graphs = []
+        self.steps = []
+        self.static_bytes = 0     # the steps' output buffers
+
+    @property
+    def segments(self) -> int:
+        return len(self.graphs)
+
+    def replay(self) -> None:
+        for graph, step in zip(self.graphs, self.steps + [None]):
+            graph.replay()
+            if step is not None:
+                step()
+
+
+class _Segmenter:
+    """The hook of a segmented capture (``collectives.intercepted``)."""
+
+    def __init__(self, program: SegmentedGraph):
+        self.program = program
+        self.pool = torch.cuda.graph_pool_handle()
+        self.open = False
+
+    def begin(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin(pool=self.pool)
+        self.program.graphs.append(graph)
+        self.open = True
+
+    def end(self) -> None:
+        self.open = False
+        self.program.graphs[-1].capture_end()
+
+    def __call__(self, kind, x, group):
+        self.end()
+        # outside any capture: the buffers live in the ordinary pool, and
+        # the step holds x, so no later segment reuses its block.  Normal
+        # tensors, not inference ones: a replay may run outside
+        # inference mode and writes them in place
+        with torch.inference_mode(False):
+            out = collectives.outputs(kind, x, group)
+        self.program.static_bytes += sum(t.numel() * t.element_size()
+                                         for t in out)
+        self.program.steps.append(
+            lambda: collectives.transport(kind, x, group, out))
+        self.begin()
+        return out[0] if kind == "all_reduce" else out
+
+
+def capture_segments(fn, warm, device, warm_runs: int):
+    """``capture_graph`` for a program with collectives in it: the same
+    warm runs (they communicate, so every rank must run as many), then
+    ``fn()`` captured into a ``SegmentedGraph`` whose graph closes at each
+    collective this thread reaches (``collectives.intercepted``; one from
+    another thread raises) and opens again after it, on one capture
+    stream.  The capture runs no collective.  Returns (the program, what
+    ``fn`` returned, the kernel launches recorded over every segment, the
+    device memory the capture reserved: the pool and the steps' static
+    buffers).  A failed capture raises, its open graph ended."""
+    before = _warm(warm, device, warm_runs)
+    program = SegmentedGraph()
+    seg = _Segmenter(program)
+    stream = torch.cuda.Stream(device)
+    with kernels.captured() as launches, torch.cuda.stream(stream), \
+            collectives.intercepted(seg):
+        seg.begin()
+        try:
+            out = fn()
+        finally:
+            if seg.open:
+                seg.end()
+    torch.cuda.current_stream(device).wait_stream(stream)
+    return (program, out, dict(launches),
             torch.cuda.memory_reserved(device) - before)
+
+
+PLAIN_VERSIONS = ((segment, "segmented_max_plain"),
+                  (attention_kernel, "set_attention_plain"),
+                  (encoder_kernel, "encoder_epilogue_plain"),
+                  (nms_kernel, "pairwise_overlap_clip"),
+                  (nms_peel, "nms_peel_plain"))
+aten = torch.ops.aten
+# inside inference mode a read reaches the dispatcher as ``item`` or
+# ``is_nonzero``, not decomposed to ``_local_scalar_dense``
+HOST_READS = {aten._local_scalar_dense.default: "reads a value on the host",
+              aten.item.default: "reads a value on the host",
+              aten.is_nonzero.default: "reads a value on the host",
+              aten.nonzero.default: "has a data-dependent shape",
+              aten.masked_select.default: "has a data-dependent shape",
+              aten.lift_fresh.default: "makes a tensor from host data",
+              aten.lift_fresh_copy.default: "makes a tensor from host data"}
+INDEXING = (aten.index.Tensor, aten.index_put_.default, aten.index_put.default,
+            aten._index_put_impl_.default)
+
+
+class SyncGuard(TorchDispatchMode):
+    """Records each op that a CUDA graph cannot capture, with the port's
+    frames of the Python stack, outside ``exempt``: a read back to the
+    host or a data-dependent shape (``aten._local_scalar_dense``,
+    ``aten.nonzero``, ``aten.masked_select``, a boolean index in
+    ``aten.index`` / ``aten.index_put_``) and a tensor made from Python or
+    NumPy data (``aten.lift_fresh``: on the card, a copy from the host).
+    It runs on the CPU, so a test finds them before a capture would."""
+
+    def __init__(self):
+        super().__init__()
+        self.hits = []
+        self.paused = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        why = HOST_READS.get(func)
+        if why is None and func in INDEXING and any(
+                t is not None and t.dtype in (torch.bool, torch.uint8)
+                for t in args[1]):
+            why = "indexes by a boolean mask"
+        if why and not self.paused:
+            where = [line.strip() for line in traceback.format_stack()[:-1]
+                     if "dsvt_ai_trt_tpu_torch" in line]
+            self.hits.append(f"{func} {why} at {where[-1:]}")
+        return func(*args, **(kwargs or {}))
+
+    @contextlib.contextmanager
+    def exempt(self):
+        self.paused += 1
+        try:
+            yield
+        finally:
+            self.paused -= 1
+
+    @contextlib.contextmanager
+    def plain_versions_exempt(self):
+        """Exempt the kernels' plain versions (``PLAIN_VERSIONS``): the
+        card runs the kernels there, and the plain versions run only on
+        the CPU."""
+        saved = [(module, name, getattr(module, name))
+                 for module, name in PLAIN_VERSIONS]
+
+        def exempted(plain):
+            def run(*args, **kw):
+                with self.exempt():
+                    return plain(*args, **kw)
+            return run
+        try:
+            for module, name, plain in saved:
+                setattr(module, name, exempted(plain))
+            yield self
+        finally:
+            for module, name, plain in saved:
+                setattr(module, name, plain)
 
 
 class Engine:
@@ -197,15 +390,28 @@ class Engine:
     With ``batch`` B the engine runs ``forward_batch`` on groups of B
     frames: ``points`` [B, max_points, 4], ``num_points`` B ints or a [B]
     tensor, stacked Detections out; its graph holds B frames' launches.
+
+    With a process group, ``tp`` (params of ``parallel.mesh.rank_params``)
+    runs the encoders tensor parallel over it and ``spatial`` shards each
+    frame over it (``forward`` inside ``spatial_sharding(spatial)``; pass
+    ``torch.distributed.group.WORLD`` for the default group): the
+    counterparts of the JAX package's jitted forward over a mesh.  Every
+    rank of the group makes the engine and calls it in step.  The graph is
+    then captured in segments (``capture_segments``): ``segments`` graphs a
+    replay, one collective between two of them.
     """
 
     WARM_RUNS = 2   # eager frames on a side stream before the capture
 
     def __init__(self, params, cfg: DSVTConfig, device="cuda",
                  with_nms: bool = True, engine_path: Optional[str] = None,
-                 batch: Optional[int] = None):
+                 batch: Optional[int] = None, tp=None, spatial=None):
+        if tp is not None and spatial is not None:
+            raise ValueError("Engine: tensor and spatial sharding do not "
+                             "combine")
         self.cfg = cfg
         self.batch = batch
+        self.tp, self.spatial = tp, spatial
         self.device = resolve_device(device)
         self.with_nms = with_nms
         if engine_path and os.path.exists(engine_path):
@@ -224,12 +430,17 @@ class Engine:
         self.graph_launches = {}   # kernel launches one replay makes
         self.capture_seconds = None
         self.graph_pool_bytes = None
+        self.segments = None       # graphs a replay launches
 
     def eager(self, points, num_points) -> Detections:
-        """The forward op by op, on this engine's weights and device."""
+        """The forward op by op, on this engine's weights, device and
+        group."""
         run = forward if self.batch is None else forward_batch
-        return run(self.params, points, num_points, self.cfg, self.with_nms,
-                   device=self.device)
+        sharded = (contextlib.nullcontext() if self.spatial is None
+                   else spatial_sharding(self.spatial))
+        with sharded:
+            return run(self.params, points, num_points, self.cfg,
+                       self.with_nms, device=self.device, tp=self.tp)
 
     def __call__(self, points, num_points) -> Detections:
         if self.device.type != "cuda":
@@ -269,11 +480,12 @@ class Engine:
         stream (lazy initialisations and the allocator settle there; the
         kernels' first-launch attribute calls run), capture ``forward``
         (``forward_batch``) over the static buffers into one CUDA graph
-        (``capture_graph``), and replay it on an empty frame (group).
-        Recorded: ``capture_seconds`` (all of that, after the build) and
+        (``capture_graph``; with a group, in segments: ``capture_segments``),
+        and replay it on an empty frame (group).  Recorded:
+        ``capture_seconds`` (all of that, after the build),
         ``graph_pool_bytes``, the device memory the capture reserved: the
         graph's private pool, which holds every intermediate of a frame
-        (group)."""
+        (group), and ``segments``."""
         frames = () if self.batch is None else (self.batch,)
         if self.device.type != "cuda":
             self(np.zeros(frames + (self.cfg.max_points, 4), np.float32),
@@ -291,11 +503,15 @@ class Engine:
 
         def run():
             return self.eager(self._points, self._num)
+        grouped = self.tp is not None or self.spatial is not None
         self._graph, self._out, self.graph_launches, self.graph_pool_bytes \
-            = capture_graph(run, run, self.device, self.WARM_RUNS)
+            = (capture_segments if grouped else capture_graph)(
+                run, run, self.device, self.WARM_RUNS)
+        self.segments = self._graph.segments if grouped else 1
         self(self._points, 0).count.cpu()   # an empty frame, waited for
         self.capture_seconds = time.perf_counter() - t0
-        log.info("captured the forward in %.2f s: %d MB in the graph's pool, "
-                 "launches a replay %s", self.capture_seconds,
-                 self.graph_pool_bytes >> 20, self.graph_launches)
+        log.info("captured the forward in %.2f s (%d segments): %d MB in the "
+                 "graph's pool, launches a replay %s", self.capture_seconds,
+                 self.segments, self.graph_pool_bytes >> 20,
+                 self.graph_launches)
         return self

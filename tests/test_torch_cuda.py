@@ -17,12 +17,17 @@ own, with no fused multiply-adds, as the plain version's PyTorch ops do;
 nms_peel bit-exact (kept set and count: boolean algebra).  The engine's
 replays bit-exact against ``Engine.eager`` at a tiny configuration: the
 same kernels on the same inputs; the scan graph's frames bit-exact against
-the per-frame engine's replays.  The compiled training step against eager
+the per-frame engine's replays; a segmented capture
+(``capture_segments``, on a one-rank gloo group) and the engines captured
+in segments (``Engine(..., tp=)``, ``Engine(..., spatial=)``) bit-exact
+against their eager runs.  The compiled training step against eager
 steps from the same weights: the loss at 1e-5 relative, each leaf within
 1e-6 of its largest plus 2 lr (the backward's atomics reorder sums, and
 AdamW's first steps move a leaf by about lr times the sign of its
 gradient, which a rounding difference can flip where it is near 0).
 """
+
+import threading
 
 import numpy as np
 import pytest
@@ -35,7 +40,8 @@ from dsvt_ai_trt_tpu_torch.ops import encoder_kernel as ek
 from dsvt_ai_trt_tpu_torch.ops import nms_kernel as nk
 from dsvt_ai_trt_tpu_torch.ops import nms_peel as npl
 from dsvt_ai_trt_tpu_torch.ops import segment
-from dsvt_ai_trt_tpu_torch.runtime.compile import Engine
+from dsvt_ai_trt_tpu_torch.parallel import collectives, dryrun
+from dsvt_ai_trt_tpu_torch.runtime.compile import Engine, capture_segments
 
 pytestmark = pytest.mark.cuda
 NEG = -3.4028235e38
@@ -474,3 +480,85 @@ def test_compiled_train_step_equals_eager(dev, tmp_path):
     with pytest.raises(ValueError, match="graph takes"):
         compiled(batch[0][:1], batch[1][:1],
                  type(batch[2])(*(t[:1] for t in batch[2])))
+
+
+@pytest.fixture
+def gloo1(tmp_path):
+    """A gloo group of one rank (this process): its collectives copy
+    through the host as a larger group's do."""
+    import torch.distributed as dist
+    collectives.init_group("gloo", 1, 0, str(tmp_path / "init"))
+    yield dist.group.WORLD
+    dist.destroy_process_group()
+
+
+def test_capture_segments_replays_two_all_reduces(dev, gloo1):
+    """A toy program with two all-reduces: 3 segments, 2 host steps, and
+    a replay equal to the eager run bit for bit (new inputs written into
+    the captured ones)."""
+    x = torch.randn(4096, device=dev)
+    w = torch.randn(4096, device=dev)
+
+    def fn():
+        a = collectives.all_reduce(x * 2 + 1, gloo1)
+        b = collectives.all_reduce(torch.sin(a) * w, gloo1)
+        return torch.cos(b * 3)
+
+    program, out, _launches, nbytes = capture_segments(fn, fn, dev, 2)
+    assert program.segments == 3 and len(program.steps) == 2
+    assert program.static_bytes == 2 * 4096 * 4 and nbytes >= 0
+    for seed in (1, 2):
+        x.copy_(torch.randn(4096, generator=torch.Generator().manual_seed(
+            seed)).to(dev))
+        collectives.reset_stats()
+        program.replay()
+        assert collectives.stats()["calls"] == 2
+        assert torch.equal(out, fn())
+
+
+def test_capture_segments_refuses_another_threads_collective(dev, gloo1):
+    """A collective reached from another thread while the capture is open
+    raises there; the capture fails and ends its open graph."""
+    x = torch.ones(8, device=dev)
+
+    def fn():
+        errors = []
+
+        def other():
+            try:
+                collectives.all_reduce(x, gloo1)
+            except RuntimeError as exc:
+                errors.append(exc)
+        thread = threading.Thread(target=other)
+        thread.start()
+        thread.join()
+        if errors:
+            raise errors[0]
+        return x + 1
+
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        capture_segments(fn, lambda: None, dev, 1)
+    assert float(collectives.all_reduce(x + 1, gloo1).sum()) == 16.0
+
+
+@pytest.mark.parametrize("group", ["tp", "spatial"])
+def test_segmented_engine_replay_equals_eager(dev, gloo1, group):
+    """``Engine(..., tp=)`` (fp32: Megatron's all-reduces) and ``Engine(...,
+    spatial=)`` on the one-rank group: the segments ``dryrun.
+    breaks_per_frame`` counts, plus one, and replays equal to
+    ``Engine.eager`` bit for bit."""
+    cfg = _tiny_config("fp32")
+    engine = Engine(weights.random_params(cfg, 0), cfg,
+                    **{group: gloo1}).warmup()
+    mode = "mp" if group == "tp" else "sp"
+    assert engine.segments == 1 + dryrun.breaks_per_frame(cfg, mode)
+    assert engine.graph_launches == {
+        "segment_max": 2, "set_attention": 0, "encoder_epilogue": 0,
+        "rotated_overlap": 1, "nms_peel": 1}
+    for n, seed in ((1500, 1), (600, 2)):
+        pts, n = _cloud(cfg, n, seed)
+        got = engine(pts, n)
+        ref = engine.eager(torch.from_numpy(pts).to(dev),
+                           torch.tensor(n, device=dev))
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)

@@ -1,10 +1,11 @@
 """The port's forward as a CUDA graph takes it, checked on the CPU at the
 tiny configuration.
 
-* sync guard: a ``TorchDispatchMode`` around ``forward(..., with_nms=True)``
-  and ``with_nms=False`` (fp32 and bf16 on the kernel path, and bf16 on
-  the plain path, ``use_pallas=False``, which the card runs as PyTorch ops
-  apart from nms_peel) records every op that reads a value back to the
+* sync guard: ``runtime.compile.SyncGuard``, a ``TorchDispatchMode``,
+  around ``forward(..., with_nms=True)`` and ``with_nms=False`` (fp32 and
+  bf16 on the kernel path, and bf16 on the plain path,
+  ``use_pallas=False``, which the card runs as PyTorch ops apart from
+  nms_peel) records every op that reads a value back to the
   host or has a data-dependent shape (``aten._local_scalar_dense``,
   ``aten.nonzero``, ``aten.masked_select``, a boolean index in
   ``aten.index`` / ``aten.index_put_``) and every tensor made from Python
@@ -24,15 +25,12 @@ tiny configuration.
   no graph, no launch; the launch accounting of a capture and its replays.
 """
 
-import contextlib
 import json
-import traceback
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from conftest import make_cloud, tiny_config
 from test_golden import GOLDEN_TINY, _assert_boxes
@@ -44,66 +42,11 @@ from dsvt_ai_trt_tpu.ops.nms import nms as jax_nms
 from dsvt_ai_trt_tpu.ops.voxelize import cell_edges as jax_cell_edges
 from dsvt_ai_trt_tpu_torch import kernels, weights
 from dsvt_ai_trt_tpu_torch.model.detector import forward
-from dsvt_ai_trt_tpu_torch.ops import (attention_kernel, encoder_kernel,
-                                       nms_kernel, nms_peel, segment)
+from dsvt_ai_trt_tpu_torch.ops import nms_peel
 from dsvt_ai_trt_tpu_torch.ops.bev import map_to_bev
 from dsvt_ai_trt_tpu_torch.ops.nms import nms
 from dsvt_ai_trt_tpu_torch.ops.voxelize import cell_edges
-from dsvt_ai_trt_tpu_torch.runtime.compile import Engine
-
-aten = torch.ops.aten
-HOST_READS = {aten._local_scalar_dense.default: "reads a value on the host",
-              aten.nonzero.default: "has a data-dependent shape",
-              aten.masked_select.default: "has a data-dependent shape",
-              aten.lift_fresh.default: "makes a tensor from host data",
-              aten.lift_fresh_copy.default: "makes a tensor from host data"}
-INDEXING = (aten.index.Tensor, aten.index_put_.default, aten.index_put.default,
-            aten._index_put_impl_.default)
-PLAIN_VERSIONS = ((segment, "segmented_max_plain"),
-                  (attention_kernel, "set_attention_plain"),
-                  (encoder_kernel, "encoder_epilogue_plain"),
-                  (nms_kernel, "pairwise_overlap_clip"),
-                  (nms_peel, "nms_peel_plain"))
-
-
-class SyncGuard(TorchDispatchMode):
-    """Records each op that a CUDA graph cannot capture (module docstring),
-    with the port's frames of the Python stack, outside ``exempt``."""
-
-    def __init__(self):
-        super().__init__()
-        self.hits = []
-        self.paused = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        why = HOST_READS.get(func)
-        if why is None and func in INDEXING and any(
-                t is not None and t.dtype in (torch.bool, torch.uint8)
-                for t in args[1]):
-            why = "indexes by a boolean mask"
-        if why and not self.paused:
-            where = [line.strip() for line in traceback.format_stack()
-                     if "dsvt_ai_trt_tpu_torch" in line]
-            self.hits.append(f"{func} {why} at {where[-1:]}")
-        return func(*args, **(kwargs or {}))
-
-    @contextlib.contextmanager
-    def exempt(self):
-        self.paused += 1
-        try:
-            yield
-        finally:
-            self.paused -= 1
-
-
-def _exempt_plain_versions(monkeypatch, guard):
-    for module, name in PLAIN_VERSIONS:
-        plain = getattr(module, name)
-
-        def wrapped(*args, _plain=plain, **kw):
-            with guard.exempt():
-                return _plain(*args, **kw)
-        monkeypatch.setattr(module, name, wrapped)
+from dsvt_ai_trt_tpu_torch.runtime.compile import Engine, SyncGuard
 
 
 def _tiny(precision, use_pallas=True):
@@ -119,13 +62,11 @@ def _tiny(precision, use_pallas=True):
 @pytest.mark.parametrize("with_nms", [True, False])
 @pytest.mark.parametrize("precision,use_pallas", [
     ("fp32", True), ("bf16", True), ("bf16", False)])
-def test_forward_reads_nothing_back(monkeypatch, precision, use_pallas,
-                                    with_nms):
+def test_forward_reads_nothing_back(precision, use_pallas, with_nms):
     cfg, params, pts, n = _tiny(precision, use_pallas)
     ref = forward(params, pts, n, cfg, with_nms, device="cpu")
     guard = SyncGuard()
-    _exempt_plain_versions(monkeypatch, guard)
-    with guard:
+    with guard.plain_versions_exempt(), guard:
         got = forward(params, pts, n, cfg, with_nms, device="cpu")
     assert guard.hits == []
     assert int(got.count) > 0
@@ -134,8 +75,10 @@ def test_forward_reads_nothing_back(monkeypatch, precision, use_pallas,
 
 
 def test_guard_sees_what_a_graph_cannot_capture():
-    """The guard flags a host read, a boolean index and host data, and
-    passes its exempt region."""
+    """The guard flags a host read, a boolean index and host data, also
+    inside inference mode (where ``forward`` runs and a read reaches the
+    dispatcher as ``item`` / ``is_nonzero``), and passes its exempt
+    region."""
     guard = SyncGuard()
     x = torch.arange(6.0)
     with guard:
@@ -144,9 +87,13 @@ def test_guard_sees_what_a_graph_cannot_capture():
         torch.tensor([1.0, 2.0])
         with guard.exempt():
             x.max().item()
+        with torch.inference_mode():
+            float(x.sum())
+            bool(x.sum() > 3)
     assert [h.split(" ")[0] for h in guard.hits] == [
         "aten._local_scalar_dense.default", "aten.index.Tensor",
-        "aten.lift_fresh.default"]
+        "aten.lift_fresh.default", "aten.item.default",
+        "aten.is_nonzero.default"]
 
 
 @pytest.mark.parametrize("cfg", [jax_config.DEFAULT_CONFIG,

@@ -2,7 +2,7 @@
 the CPU at the tiny configuration (the captures themselves run on the card:
 ``chip_smoke.py``'s training and graph phases).
 
-* sync guard (``tests/test_torch_graph.py:SyncGuard``) around a whole step
+* sync guard (``runtime.compile.SyncGuard``) around a whole step
   of ``CompiledTrainStep`` (on the CPU its eager step): remat on and off,
   and with the global-norm clip.  No plain version is exempt: training runs
   the plain paths on the card too.  The guard does see torch's own AdamW,
@@ -15,8 +15,9 @@ the CPU at the tiny configuration (the captures themselves run on the card:
 * ``CompiledTrainStep`` on the CPU equals ``make_train_step``'s eager step
   bit for bit; ``load_train_state`` writes into the addresses the step
   holds and a resumed step equals the eager path's bit for bit; a step
-  draws no random number and leaves the RNG state as it was; a mesh is
-  refused; ``refold`` keeps the derived weights' addresses;
+  draws no random number and leaves the RNG state as it was; a dp mesh is
+  taken and an mp > 1 mesh refused; ``refold`` keeps the derived weights'
+  addresses;
 * the scan engine (``Engine(..., batch=B)``) on the CPU equals the JAX
   package's jitted ``forward_scan`` frame for frame (counts and occupancy
   exact, boxes 1e-4), and the guard finds nothing around ``forward_batch``
@@ -33,15 +34,15 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from conftest import make_cloud, tiny_config
 from test_golden import _assert_boxes
-from test_torch_graph import SyncGuard, _exempt_plain_versions
 
 from dsvt_ai_trt_tpu import weights as jax_weights
 from dsvt_ai_trt_tpu_torch import data, weights
 from dsvt_ai_trt_tpu_torch.model.detector import forward_batch
+from dsvt_ai_trt_tpu_torch.parallel.mesh import Mesh
 from dsvt_ai_trt_tpu_torch.parallel.training import (
     AdamW, CompiledTrainStep, load_train_state, make_train_step,
     save_train_state, warmup_cosine)
-from dsvt_ai_trt_tpu_torch.runtime.compile import Engine
+from dsvt_ai_trt_tpu_torch.runtime.compile import Engine, SyncGuard
 
 SCENE = dict(n_objects=2, n_ground=200, pts_per_obj=30)
 
@@ -223,10 +224,21 @@ def test_step_leaves_the_rng_state_unchanged():
     assert torch.equal(torch.get_rng_state(), before)
 
 
-def test_compiled_step_refuses_a_mesh():
-    with pytest.raises(ValueError, match="sharded step"):
-        CompiledTrainStep(tiny_config(), _params(), 2, device="cpu",
-                          mesh=object())
+@pytest.mark.parametrize("dp,mp", [(2, 1), (1, 2)])
+def test_compiled_step_refuses_a_mesh(dp, mp):
+    """A dp mesh (mp = 1) is captured in segments; under mp > 1 the step
+    is refused: Megatron's pair all-reduces inside the backward, on
+    autograd's own thread."""
+    mesh = Mesh(dp, mp, 0, 0)
+    if mp > 1:
+        with pytest.raises(ValueError, match="backward, on autograd's own "
+                                             "thread"):
+            CompiledTrainStep(tiny_config(), _params(), 2, device="cpu",
+                              mesh=mesh)
+        return
+    step = CompiledTrainStep(tiny_config(), _params(), 2, device="cpu",
+                             mesh=mesh)
+    assert step.mesh is mesh
 
 
 def test_refold_keeps_the_derived_weights_addresses():
@@ -275,13 +287,12 @@ def test_scan_engine_on_cpu_equals_forward_batch(with_nms):
 
 
 @pytest.mark.parametrize("with_nms", [True, False])
-def test_forward_batch_reads_nothing_back(monkeypatch, with_nms):
+def test_forward_batch_reads_nothing_back(with_nms):
     cfg = tiny_config()
     params = _params()
     points, nums = _frames(cfg)
     guard = SyncGuard()
-    _exempt_plain_versions(monkeypatch, guard)
-    with guard:
+    with guard.plain_versions_exempt(), guard:
         dets = forward_batch(params, points, nums, cfg, with_nms,
                              device="cpu")
     assert guard.hits == []
