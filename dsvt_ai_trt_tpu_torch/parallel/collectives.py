@@ -37,9 +37,17 @@ calling thread, to ``hook(kind, x, group)`` (``kind`` "all_reduce" or
 "all_gather") instead of ``transport``: ``runtime.compile.
 capture_segments`` closes its CUDA graph there and records a host step
 that runs ``transport`` at replay into static buffers of ``outputs``.
-While any thread has a hook, a collective reached from a thread without
-one raises (autograd runs a CUDA backward on a thread of its own), so no
-capture holds half a collective.
+
+Who may reach a hook: the thread that entered ``intercepted``, and the
+work that thread hands to autograd.  Autograd runs a CUDA backward, and a
+non-reentrant checkpoint's recomputation inside it, on a thread of its
+own, so the hook travels with that work, not with the thread:
+``copy_to_tp`` records the hook current at its forward and its backward
+runs under it (``carried``), and a function wrapped by ``carrying`` runs
+under the hook current where it was wrapped, whichever thread calls it
+(``parallel.training.batched_loss`` wraps each frame's checkpointed
+stages).  Any other collective reached from a thread without a hook while
+some thread has one raises, so no capture holds half a collective.
 """
 
 from __future__ import annotations
@@ -48,7 +56,7 @@ import contextlib
 import os
 import threading
 import time
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -99,14 +107,19 @@ _LOCAL = threading.local()
 _HOOKED = set()          # idents of the threads that have a hook
 
 
+def _current_hook() -> Optional[Callable]:
+    """This thread's hook (``intercepted``, ``carried``), or None."""
+    return getattr(_LOCAL, "hook", None)
+
+
 def _hook():
-    hook = getattr(_LOCAL, "hook", None)
+    hook = _current_hook()
     if hook is None and _HOOKED:
         raise RuntimeError(
             f"a collective on thread {threading.get_ident()} while thread(s) "
             f"{sorted(_HOOKED)} capture segments: a collective that another "
-            "thread reaches (autograd's backward runs on its own) cannot be "
-            "captured")
+            "thread reaches, and that carries no hook with it (``carried``), "
+            "cannot be captured")
     return hook
 
 
@@ -124,6 +137,32 @@ def intercepted(hook: Callable):
     finally:
         _HOOKED.discard(ident)
         del _LOCAL.hook
+
+
+@contextlib.contextmanager
+def carried(hook: Optional[Callable]):
+    """Run the block under ``hook``, a hook current on the thread that made
+    the work this block does (an autograd node, a checkpointed function),
+    on whatever thread runs it: nothing changes where ``hook`` is None or
+    already this thread's; on a thread without a hook the block runs
+    ``intercepted(hook)``; a thread with another hook raises."""
+    if hook is None or _current_hook() is hook:
+        yield
+        return
+    with intercepted(hook):
+        yield
+
+
+def carrying(fn: Callable) -> Callable:
+    """``fn`` run under the hook current here and now (``carried``), on
+    whatever thread calls it: the function of a non-reentrant checkpoint,
+    which autograd's thread calls again in the backward."""
+    hook = _current_hook()
+
+    def run(*args, **kwargs):
+        with carried(hook):
+            return fn(*args, **kwargs)
+    return run
 
 
 def outputs(kind: str, x: torch.Tensor, group) -> list:
@@ -181,12 +220,13 @@ def _all_gather_equal(x: torch.Tensor, group) -> list:
 class _CopyToTP(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        ctx.group = group
+        ctx.group, ctx.hook = group, _current_hook()
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, grad):
-        return all_reduce(grad, ctx.group), None
+        with carried(ctx.hook):
+            return all_reduce(grad, ctx.group), None
 
 
 class _ReduceFromTP(torch.autograd.Function):

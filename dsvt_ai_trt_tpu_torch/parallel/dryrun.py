@@ -20,9 +20,12 @@ imports the port and nothing of JAX.
   1. a train step at the flagship widths (d_model 192, 8 heads, 4 blocks,
      FFN 384, PFN 96/192, 10 classes, 36-slot sets) with the grid and the
      caps cut for the CPU (``flagship_config``), on a dp x mp=2 mesh (mp=1
-     for an odd N), one frame per dp rank;
-  3. (N a multiple of 4) mp=4 at the same global batch: the loss equals
-     mode 1's within 1e-3 relative;
+     for an odd N), one frame per dp rank, through ``CompiledTrainStep``
+     (the JAX dry run jits the step) held against the eager step
+     (``held_steps``; on the card its graph is captured in segments, 1 +
+     ``breaks_per_step`` of them);
+  3. (N a multiple of 4) mp=4 at the same global batch, the same way: the
+     loss equals mode 1's within 1e-3 relative;
   2. sp=N over one dense frame at reduced caps: count and boxes equal the
      unsharded run at 1e-4;
   4. sp=N over a 52-row grid (uneven at every level for N = 3 or 4);
@@ -31,13 +34,13 @@ imports the port and nothing of JAX.
 ``card_modes`` is chip_smoke.py's ``multi`` phase (world 2 on ``cuda:0``,
 ``DEFAULT_CONFIG`` full caps): dp=2, mp=2 at bf16 and sp=2 at fp32 and
 bf16, each eager and through its compiled ``Engine`` (captured in segments
-where a collective lies inside), a dp=2 training step compiled
-(``CompiledTrainStep``) against eager, and an eager mp=2 training step,
-each rank's kernel launches counted over its run (the smoke script records
-B1 and B2's inputs through ``mark`` and holds them against their plain
-versions).  The other functions are the tasks the CPU tests spawn
-(``graph_task`` and ``compiled_step_task`` run the compiled programs'
-eager counterparts under a ``SyncGuard`` and a ``BreakRecorder``).
+where a collective lies inside), and dp=2 and mp=2 training steps compiled
+(``CompiledTrainStep``) against eager, each rank's kernel launches counted
+over its run (the smoke script records B1 and B2's inputs through ``mark``
+and holds them against their plain versions).  The other functions are the
+tasks the CPU tests spawn (``graph_task`` and ``compiled_step_task`` run
+the compiled programs' eager counterparts under a ``SyncGuard`` and a
+``BreakRecorder``).
 """
 
 from __future__ import annotations
@@ -66,7 +69,7 @@ from .mesh import gather_params, make_dp_engine, make_mesh, rank_params
 from .training import (CompiledTrainStep, Targets, make_train_step,
                        random_targets)
 
-TRAIN_REPLAYS = 6    # card_modes: dp_train's replays held to eager steps
+TRAIN_REPLAYS = 6    # card_modes: each train mode's replays held to eager
 
 
 # --------------------------------------------------------------------------
@@ -235,6 +238,26 @@ def breaks_per_frame(cfg: DSVTConfig, mode: str) -> int:
             "sp": 5 * cfg.num_blocks + 2 * units + 3 + 2}[mode]
 
 
+def breaks_per_step(cfg: DSVTConfig, dp: int, mp: int, frames: int,
+                    remat: bool, clip: bool) -> int:
+    """The collectives one step of ``CompiledTrainStep`` under a dp x mp
+    mesh reaches on each rank, on a global batch of ``frames``: the graph
+    breaks of its segmented capture.  Under mp > 1, for each of the rank's
+    frames / dp frames, Megatron's route (training runs it at every
+    precision): two ``reduce_from_tp`` an encoder in the forward and again
+    in ``remat``'s recomputation, and five ``copy_to_tp`` an encoder in the
+    backward (x_q, the position MLP's hidden h1, its w2 and b2 folded into
+    the q/k columns, the FFN's input x1); with dp > 1 the one all-reduce of
+    the gradients and the loss; with a clip under mp > 1 the all-reduce of
+    the sharded gradients' squares.  ``DEFAULT_CONFIG``: 72 a frame with
+    ``remat``, 56 without.  tests/test_torch_mesh_graph.py and
+    tests/test_torch_parallel.py count them on the CPU."""
+    per_frame = 0
+    if mp > 1:
+        per_frame = 2 * cfg.num_blocks * (2 + 5 + (2 if remat else 0))
+    return frames // dp * per_frame + (dp > 1) + (clip and mp > 1)
+
+
 class BreakRecorder:
     """A ``collectives.intercepted`` hook that runs each collective now
     (``collectives.transport``), paused in ``guard`` if one is given, and
@@ -306,19 +329,24 @@ def graph_task(rank, world, device, cfg: DSVTConfig, params, points, nums,
 
 
 def compiled_step_task(rank, world, device, cfg: DSVTConfig, params, points,
-                       nums, targets, steps: int = 3) -> dict:
-    """``CompiledTrainStep`` under a dp = world mesh (mp = 1) against
+                       nums, targets, steps: int = 3, mp: int = 1,
+                       remat: bool = False,
+                       max_grad_norm: Optional[float] = None) -> dict:
+    """``CompiledTrainStep`` under a dp x mp mesh (dp = world / mp) against
     ``make_train_step(..., mesh=)``'s eager step, each on its own copy of
-    the weights, ``steps`` steps of the global batch; the first compiled
-    step inside a ``SyncGuard`` with a ``BreakRecorder``.  Returns both
-    losses a step, whether every leaf and gradient ended bit-equal, the
-    guard's hits and the breaks of a step."""
-    mesh = make_mesh(world, 1)
+    the weights, ``steps`` steps of the global batch, with or without
+    ``remat`` and the clip; the first compiled step inside a ``SyncGuard``
+    with a ``BreakRecorder``.  Returns both losses a step, whether every
+    leaf and gradient ended bit-equal, the guard's hits, the breaks of a
+    step, and the compiled step's leaves and gradients whole after its
+    first step (``train_task``'s keys)."""
+    mesh = make_mesh(world // mp, mp)
     p_graph = rank_params(params, mesh, device)
     p_eager = rank_params(params, mesh, device)
-    compiled = CompiledTrainStep(cfg, p_graph, len(points), mesh=mesh,
-                                 device=device)
-    _opt, eager = make_train_step(cfg, p_eager, mesh=mesh, device=device)
+    kw = dict(mesh=mesh, device=device, remat=remat,
+              max_grad_norm=max_grad_norm)
+    compiled = CompiledTrainStep(cfg, p_graph, len(points), **kw)
+    _opt, eager = make_train_step(cfg, p_eager, **kw)
     batch = (torch.as_tensor(points, device=device),
              torch.as_tensor(nums, device=device),
              Targets(*(torch.as_tensor(t, device=device) for t in targets)))
@@ -327,13 +355,118 @@ def compiled_step_task(rank, world, device, cfg: DSVTConfig, params, points,
     with guard, collectives.intercepted(recorder):
         first = compiled(*batch)
     losses = [(float(first), float(eager(*batch)))]
+    whole = {key: {k: v.cpu().numpy()
+                   for k, v in gather_params(p_graph, mesh, grads).items()}
+             for key, grads in (("leaves", False), ("grads", True))}
     for _ in range(steps - 1):
         losses.append((float(compiled(*batch)), float(eager(*batch))))
     same = all(torch.equal(a, b) and torch.equal(a.grad, b.grad)
                for (_, a), (_, b) in zip(weights.named_leaves(p_graph),
                                          weights.named_leaves(p_eager)))
     return {"losses": losses, "bit_equal": same, "hits": guard.hits,
-            "breaks": recorder.breaks}
+            "breaks": recorder.breaks, **whole}
+
+
+# --------------------------------------------------------------------------
+# compiled train steps held against eager ones (the dry run, the card)
+# --------------------------------------------------------------------------
+
+
+def step_gate(key, new, ref_new, grad, ref_grad, lr=1e-4,
+              what="step") -> tuple:
+    """One AdamW step against another (sharded against single-process, or
+    a graph replay against an eager step), on a leaf ``key``: the
+    gradient within 5e-3 of its largest or 5e-4 (at full width a one-ulp
+    change of the encoder weights alone moves the gradients about as far
+    as the sharded summation order does, beyond 1e-4 of their largest on
+    most leaves: chip_smoke.py's ``nudge_``); the updated leaf within 1e-4
+    of its largest wherever the gradient exceeds its own difference by
+    1e-6 (100 AdamW eps), elsewhere, where the first step's lr * g / (|g| +
+    eps), about lr * sign(g), may flip, within 2 lr + 1e-6.  Raises
+    AssertionError naming ``what``; returns (the gradient's max |d| over
+    its largest, the updated leaf's max |d| over its largest)."""
+    gdiff = np.abs(grad - ref_grad)
+    gmax = float(np.abs(ref_grad).max())
+    if float(gdiff.max()) > max(5e-3 * gmax, 5e-4):
+        raise AssertionError(f"{what} gradient of {key} differs by "
+                             f"{float(gdiff.max()):.3e} (largest "
+                             f"{gmax:.3e})")
+    d = np.abs(new - ref_new)
+    scale = float(np.abs(ref_new).max())
+    big = np.abs(ref_grad) > gdiff + 1e-6
+    if not (float(d[big].max(initial=0)) <= 1e-4 * scale
+            and float(d.max(initial=0)) <= 2 * lr + 1e-6):
+        raise AssertionError(f"{what} step of {key} differs by "
+                             f"{float(d.max()):.3e}")
+    return (float(gdiff.max()) / max(gmax, 1e-30),
+            float(d[big].max(initial=0)) / max(scale, 1e-30))
+
+
+def held_steps(cfg: DSVTConfig, params, mesh, batch: tuple, device,
+               replays: int, gate: Callable = step_gate, what: str = "",
+               first: Optional[Callable] = None) -> tuple:
+    """``CompiledTrainStep`` under ``mesh`` against ``make_train_step(...,
+    mesh=)``'s eager step, each on its own ``rank_params(params)``, on the
+    global ``batch`` (points, nums, ``Targets``, on ``device``): the
+    compiled step warms up and captures with the launch counters at 0,
+    then ``replays`` times the eager step and a replay from the same state
+    (before every replay but the first, the eager step's leaves, moments
+    and count are written into the compiled step's in place): each
+    replay's loss within 1e-5 relative of the eager step's, and this
+    rank's every leaf and gradient held by ``gate`` (``step_gate``'s
+    arguments).  ``first(eager params)``, if given, runs after the first
+    eager step.  Every rank of the mesh calls it in step.  Returns (the
+    record: the launches over all of it, a row per replay, replays,
+    segments, pool MB and capture seconds (None on the CPU); the eager
+    step and the compiled one as functions of no argument)."""
+    p_eager = rank_params(params, mesh, device)
+    p_graph = rank_params(params, mesh, device)
+    opt, eager = make_train_step(cfg, p_eager, mesh=mesh, device=device)
+    compiled = CompiledTrainStep(cfg, p_graph, len(batch[0]), mesh=mesh,
+                                 device=device)
+    ref_leaves = weights.named_leaves(p_eager)
+    leaves = weights.named_leaves(p_graph)
+    kernels.reset_counts()
+    compiled.warmup()
+    rows = []
+    for k in range(replays):
+        if k:                             # the eager step's state, in place
+            with torch.no_grad():
+                for (_, r), (_, t) in zip(ref_leaves, leaves):
+                    t.copy_(r)
+                    for key in ("exp_avg", "exp_avg_sq"):
+                        compiled.optimizer.state[t][key].copy_(
+                            opt.state[r][key])
+                compiled.optimizer.count.copy_(opt.count)
+            weights.refold(p_graph)
+        t0 = time.perf_counter()
+        want = float(eager(*batch))
+        seconds = time.perf_counter() - t0
+        if k == 0 and first is not None:
+            first(p_eager)
+        got = float(compiled(*batch))
+        if abs(got - want) > 1e-5 * abs(want):
+            raise AssertionError(f"{what}: replay {k} loss {got}, the eager "
+                                 f"step's {want}")
+        names = [weights.keystr(path) for path, _ in ref_leaves]
+        diffs = [gate(name, t.detach().cpu().numpy(),
+                      r.detach().cpu().numpy(), t.grad.cpu().numpy(),
+                      r.grad.cpu().numpy(), what=f"{what}: replay {k}")
+                 for name, (_, r), (_, t) in zip(names, ref_leaves, leaves)]
+        worst = max(range(len(diffs)), key=lambda i: diffs[i][0])
+        rows.append({"loss_eager": want, "loss_graph": got,
+                     "eager_seconds": seconds,
+                     "grad_rel_diff_max": diffs[worst][0],
+                     "grad_rel_diff_max_leaf": names[worst],
+                     "grad_rel_diff_median": float(np.median(
+                         [d[0] for d in diffs])),
+                     "leaf_rel_diff_max": max(d[1] for d in diffs)})
+    pool = compiled.graph_pool_bytes
+    record = {"launches": kernels.counts(), "steps": rows,
+              "replays": compiled.replays, "segments": compiled.segments,
+              "graph_pool_mb": None if pool is None else pool / 2**20,
+              "capture_seconds": compiled.capture_seconds}
+    return (record, lambda: eager(*batch), lambda: compiled(*batch))
 
 
 # --------------------------------------------------------------------------
@@ -391,8 +524,12 @@ def _same_boxes(mode: str, sharded: dict, whole: dict) -> str:
     return f"boxes={n} == unsharded (max |d| {d:.2e})"
 
 
-def dryrun(rank, world, device) -> dict:
-    """The five modes (module docstring); rank 0 prints and checks."""
+def dryrun(rank, world, device, gate: Callable = step_gate) -> dict:
+    """The five modes (module docstring); rank 0 prints and checks.  The
+    train steps run through ``CompiledTrainStep``, each held against its
+    eager step by ``gate`` (``held_steps``, one replay); on the card,
+    where ``remat`` is on, a replay runs 1 + ``breaks_per_step``
+    segments."""
     def say(line):
         if rank == 0:
             print(f"dryrun ok: {line}", flush=True)
@@ -407,21 +544,40 @@ def dryrun(rank, world, device) -> dict:
     points[:, :256, :3] = rng.uniform(-7, 7, (batch, 256, 3)).astype(np.float32)
     points[:, :256, 3] = rng.uniform(0, 1, (batch, 256)).astype(np.float32)
     nums = np.full((batch,), 256, np.int32)
-    targets = [t.cpu().numpy() for t in random_targets(rng, cfg, batch, "cpu")]
+    targets = random_targets(rng, cfg, batch, device)
+    step_batch = (torch.as_tensor(points, device=device),
+                  torch.as_tensor(nums, device=device), targets)
 
-    res = {"loss": train_task(rank, world, device, cfg, raw, points, nums,
-                              targets, dp, mp)["loss"]}
-    say(f"mesh dp={dp} mp={mp}, loss={res['loss']:.4f}")
-    if world % 4 == 0:
-        loss4 = train_task(rank, world, device, cfg, raw, points, nums,
-                           targets, world // 4, 4)["loss"]
-        gap = abs(loss4 - res["loss"])
-        if gap >= 1e-3 * max(1.0, abs(res["loss"])):
-            raise AssertionError(f"mp=4 loss {loss4} != mp=2 loss "
-                                 f"{res['loss']}")
-        res["loss_mp4"] = loss4
-        say(f"mesh dp={world // 4} mp=4, loss={loss4:.4f} == mp=2 loss "
-            f"(|d|={gap:.2e})")
+    def held(dp, mp):
+        rec, _eager, _graph = held_steps(cfg, raw, make_mesh(dp, mp),
+                                         step_batch, device, 1, gate,
+                                         f"dryrun dp={dp} mp={mp}")
+        want = 1 + breaks_per_step(cfg, dp, mp, batch, remat=True,
+                                   clip=False)
+        if rec["segments"] not in (None, want):
+            raise AssertionError(f"dryrun dp={dp} mp={mp}: {rec['segments']}"
+                                 f" segments a replay, expected {want}")
+        res["compiled"][f"dp{dp}_mp{mp}"] = rec
+        row, = rec["steps"]
+        segments = "" if rec["segments"] is None \
+            else f", {rec['segments']} segments"
+        return row["loss_graph"], (
+            f"compiled == eager (loss |d| "
+            f"{abs(row['loss_graph'] - row['loss_eager']):.1e}{segments})")
+
+    res = {"compiled": {}}
+    with torch.inference_mode(False):
+        res["loss"], how = held(dp, mp)
+        say(f"mesh dp={dp} mp={mp}, loss={res['loss']:.4f}, {how}")
+        if world % 4 == 0:
+            loss4, how = held(world // 4, 4)
+            gap = abs(loss4 - res["loss"])
+            if gap >= 1e-3 * max(1.0, abs(res["loss"])):
+                raise AssertionError(f"mp=4 loss {loss4} != mp=2 loss "
+                                     f"{res['loss']}")
+            res["loss_mp4"] = loss4
+            say(f"mesh dp={world // 4} mp=4, loss={loss4:.4f} == mp=2 loss "
+                f"(|d|={gap:.2e}), {how}")
 
     n_dense = 3500
     sp_cfg = dataclasses.replace(cfg, max_points=4096, max_kept_points=3072,
@@ -539,23 +695,25 @@ def _eager_and_graph(eager, graph, engine, n_frames: int) -> tuple:
 
 def card_modes(rank, world, device, frames: Dict[str, tuple], batch,
                mark: Optional[Callable[[str], None]] = None,
-               gate: Optional[Callable] = None) -> dict:
+               gate: Callable = step_gate) -> dict:
     """chip_smoke.py's multi phase on a world of 2 sharing one card, at
     ``DEFAULT_CONFIG`` full caps and the seeded weights of its main path
     (``random_params(cfg, 0)``).  ``frames``: the three bench frames;
     ``batch``: (points, nums, targets) of the training steps, NumPy;
     ``mark``, if given, is called with each mode's name as the mode
-    starts; ``gate(key, new, ref_new, grad, ref_grad, what=...)``, if
-    given, holds each leaf of a compiled dp step against the eager one.
+    starts; ``gate(key, new, ref_new, grad, ref_grad, what=...)`` holds
+    each leaf of a compiled step against the eager one (``step_gate``).
 
     Each forward mode runs its eager path and its compiled one, an
     ``Engine`` whose graph is captured in segments where the mode has a
     collective inside (``_eager_and_graph``): dp=2 (``make_dp_engine``,
     one frame a rank, mp = 1: one graph), mp=2 at bf16 (``Engine(...,
     tp=)``), sp=2 at fp32 and bf16 (``Engine(..., spatial=)``).  dp_train
-    replays ``CompiledTrainStep`` under the dp=2 mesh (fp32, batch 2)
-    against the eager step, from the same state each step; mp_train stays
-    the eager mp=2 step (a collective inside its backward).  Per mode,
+    and mp_train replay ``CompiledTrainStep`` under the dp=2 and the mp=2
+    mesh (fp32, batch 2) against the eager step, from the same state each
+    step (``held_steps``); mp_train's graph breaks at every collective of
+    its forward, backward and recomputation, and it returns its first
+    eager step's loss, leaves and gradients whole (rank 0).  Per mode,
     this rank's results for the parent to hold against its single-process
     runs."""
     mark = mark or (lambda _mode: None)
@@ -629,83 +787,42 @@ def card_modes(rank, world, device, frames: Dict[str, tuple], batch,
                            torch.as_tensor(batch[1], device=device),
                            Targets(*(torch.as_tensor(t, device=device)
                                      for t in batch[2])))
+    step_args = (b_pts, b_nums, b_tg)
     with torch.inference_mode(False):
-        # dp=2 training step at fp32, batch 2 (1 frame a rank): replays of
-        # CompiledTrainStep against eager steps from the same state
-        mark("dp_train")
-        t0 = time.perf_counter()
-        p_eager = rank_params(raw, dp_mesh, device)
-        p_graph = rank_params(raw, dp_mesh, device)
-        opt, eager = make_train_step(fp32, p_eager, mesh=dp_mesh,
-                                     device=device)
-        compiled = CompiledTrainStep(fp32, p_graph, len(b_pts),
-                                     mesh=dp_mesh, device=device)
-        ref_leaves = weights.named_leaves(p_eager)
-        leaves = weights.named_leaves(p_graph)
-        kernels.reset_counts()
-        compiled.warmup()
-        rows = []
-        for k in range(TRAIN_REPLAYS):
-            if k:                         # the eager step's state, in place
-                with torch.no_grad():
-                    for (_, r), (_, t) in zip(ref_leaves, leaves):
-                        t.copy_(r)
-                        for key in ("exp_avg", "exp_avg_sq"):
-                            compiled.optimizer.state[t][key].copy_(
-                                opt.state[r][key])
-                    compiled.optimizer.count.copy_(opt.count)
-                weights.refold(p_graph)
-            want = float(eager(b_pts, b_nums, b_tg))
-            got = float(compiled(b_pts, b_nums, b_tg))
-            if abs(got - want) > 1e-5 * abs(want):
-                raise AssertionError(f"dp_train: replay {k} loss {got}, "
-                                     f"the eager step's {want}")
-            diffs = [gate(weights.keystr(path), t.detach().cpu().numpy(),
-                          r.detach().cpu().numpy(), t.grad.cpu().numpy(),
-                          r.grad.cpu().numpy(),
-                          what=f"multi dp_train rank {rank}: replay {k}")
-                     for (path, r), (_, t) in zip(ref_leaves, leaves)] \
-                if gate is not None else [(0.0, 0.0)]
-            rows.append({"loss_eager": want, "loss_graph": got,
-                         "grad_rel_diff_max": max(d[0] for d in diffs),
-                         "leaf_rel_diff_max": max(d[1] for d in diffs)})
-        torch.cuda.synchronize()
-        launched = kernels.counts()
-        step_args = (b_pts, b_nums, b_tg)
-        eager_fn = lambda: eager(*step_args)        # noqa: E731
-        graph_fn = lambda: compiled(*step_args)     # noqa: E731
-        _o, _c, eager_times = _measured(eager_fn, 1)
-        _o, _c, graph_times = _measured(graph_fn, 1)
-        res["dp_train"] = {
-            "launches": launched, "steps": rows,
-            "replays": compiled.replays, "segments": compiled.segments,
-            "graph_pool_mb": compiled.graph_pool_bytes / 2**20,
-            "capture_seconds": compiled.capture_seconds,
-            "ms_per_frame": _alternated_ms({"eager": eager_fn,
-                                            "graph": graph_fn}, 1),
-            "eager": eager_times, **graph_times,
-            "seconds": time.perf_counter() - t0}
-        del compiled, eager, opt, p_eager, p_graph, ref_leaves, leaves
-        torch.cuda.empty_cache()
+        # the training steps at fp32, batch 2: replays of CompiledTrainStep
+        # against eager steps from the same state (``held_steps``); dp=2
+        # one frame a rank, mp=2 both frames a rank (Megatron's route: the
+        # collectives inside the backward and its recomputation break the
+        # graph), whose first eager step's leaves go whole to the parent
+        for mode, mesh in (("dp_train", dp_mesh), ("mp_train", mp_mesh)):
+            mark(mode)
+            t0 = time.perf_counter()
+            whole = {}
 
-        # mp=2 training step at fp32, batch 2 (Megatron route; no kernel):
-        # eager, its collectives run inside the backward
-        mark("mp_train")
-        p = rank_params(raw, mp_mesh, device)
-        _opt, step = make_train_step(fp32, p, mesh=mp_mesh, device=device)
-        torch.cuda.synchronize()
-        kernels.reset_counts()
-        t0 = time.perf_counter()
-        loss = float(step(b_pts, b_nums, b_tg))
-        seconds = time.perf_counter() - t0
-        counts = kernels.counts()
-        res["mp_train"] = {"loss": loss, "launches": counts,
-                           "step_seconds": seconds}
-        for key, grads in (("leaves", False), ("grads", True)):
-            whole = gather_params(p, mp_mesh, grads)
-            res["mp_train"][key] = ({k: v.cpu().numpy()
-                                     for k, v in whole.items()}
-                                    if rank == 0 else None)
+            def first(p, mesh=mesh, whole=whole):
+                if mesh.mp > 1:
+                    for key, grads in (("leaves", False), ("grads", True)):
+                        got = gather_params(p, mesh, grads)
+                        whole[key] = ({k: v.cpu().numpy()
+                                       for k, v in got.items()}
+                                      if rank == 0 else None)
+            record, eager_fn, graph_fn = held_steps(
+                fp32, raw, mesh, step_args, device, TRAIN_REPLAYS,
+                gate, f"multi {mode} rank {rank}", first)
+            _o, _c, eager_times = _measured(eager_fn, 1)
+            _o, _c, graph_times = _measured(graph_fn, 1)
+            res[mode] = {**record, **whole,
+                         "ms_per_frame": _alternated_ms({"eager": eager_fn,
+                                                         "graph": graph_fn},
+                                                        1),
+                         "eager": eager_times, **graph_times,
+                         "seconds": time.perf_counter() - t0}
+            if mesh.mp > 1:
+                res[mode].update(
+                    loss=record["steps"][0]["loss_eager"],
+                    step_seconds=record["steps"][0]["eager_seconds"])
+            del eager_fn, graph_fn, first
+            torch.cuda.empty_cache()
     return res
 
 

@@ -23,11 +23,13 @@ between the packages both ways.
 
 ``CompiledTrainStep`` is ``jax.jit(train_step)`` for the card: the whole
 step (loss, backward, clip, AdamW, refold) captured once as a CUDA graph
-over static input buffers, then replayed a call; under a dp mesh (mp = 1)
-as two graphs with the gradients' all-reduce between them
-(``runtime.compile.capture_segments``).  A replay reads and
-writes only the addresses it captured, so every piece of state a step
-touches is updated in place, never replaced: the parameters, their
+over static input buffers, then replayed a call; under a mesh in segments,
+one graph closed at each collective (``runtime.compile.capture_segments``):
+at mp = 1 two graphs with the gradients' all-reduce between them, under
+mp > 1 also one at each of Megatron's all-reduces, those the backward and
+``remat``'s recomputation reach on autograd's thread included.  A replay
+reads and writes only the addresses it captured, so every piece of state
+a step touches is updated in place, never replaced: the parameters, their
 gradients, the moments and the count, the derived weights (``refold``)
 and what ``load_train_state`` restores.  A host read, a state tensor that
 is rebound, or a learning rate held as a Python float that changes
@@ -68,7 +70,7 @@ from ..ops.common import resolve_device
 from ..runtime.compile import capture_graph, capture_segments
 from ..weights import (keystr, named_leaves, refold, to_numpy_leaf,
                        to_torch_leaf, trainable)
-from .collectives import all_reduce
+from .collectives import all_reduce, carrying
 from .mesh import COL, COL_BIAS, ROW
 
 
@@ -154,6 +156,8 @@ def batched_loss(params, points, num_points, targets: Targets,
     if remat is None:
         remat = device.type == "cuda"
 
+    # autograd's thread recomputes it under the hook current here
+    @carrying
     def frame_loss(pillars, wparts, sparts, frame_targets):
         out = float_stages(params, pillars, wparts, sparts, cfg,
                            live_weights=True, tp=tp).head_out
@@ -338,17 +342,22 @@ class CompiledTrainStep:
     docstring).  The optimizer must update in tensor ops (``AdamW``; the
     default), its learning rate fixed or a ``schedule`` of its count.
 
-    On the CPU a call runs the eager step.  Under a dp ``mesh`` (mp = 1)
-    the arguments are the global batch, of which the rank takes its share,
-    and the step is captured in segments (``runtime.compile.
-    capture_segments``): graph 1 (zeroed gradients, the loss, the backward,
-    zero gradients for unused leaves), the all-reduce of the gradients and
-    the loss between the replays' graphs, graph 2 (clip, AdamW, refold).
-    Every dp rank calls the step in step.  Under mp > 1 it raises
-    ``ValueError``: Megatron's pair all-reduces inside the backward, on
-    autograd's own thread, where no graph can be closed; those steps stay
-    on ``make_train_step``.  A capture or replay that fails raises;
-    nothing falls back to the eager step on the card.  Recorded:
+    On the CPU a call runs the eager step.  Under a ``mesh`` the arguments
+    are the global batch, of which each dp rank takes its share, every
+    rank calls the step in step, and the step is captured in segments
+    (``runtime.compile.capture_segments``), one graph closed at each
+    collective: at mp = 1 graph 1 (zeroed gradients, the loss, the
+    backward, zero gradients for unused leaves), the all-reduce of the
+    gradients and the loss between the replays' graphs, graph 2 (clip,
+    AdamW, refold).  Under mp > 1 Megatron's all-reduces break it too:
+    ``reduce_from_tp`` in the forward and again in ``remat``'s
+    recomputation, ``copy_to_tp`` in the backward, both on autograd's own
+    thread (``collectives.carried``), so its graphs begin and end on
+    different threads, in CUDA's relaxed capture mode; with dp > 1 the dp
+    all-reduce, and with a clip the tp all-reduce of the squared norm
+    (``parallel.dryrun.breaks_per_step`` counts them).  A capture or
+    replay that fails raises; nothing falls back to the eager step on the
+    card.  Recorded:
     ``capture_seconds``, ``graph_pool_bytes`` (the device memory the
     capture reserved: the graph's pool, which holds a whole step's
     intermediates), ``graph_launches`` (hand-written kernels a replay
@@ -361,14 +370,9 @@ class CompiledTrainStep:
                  dir_weight: float = 0.25, aux_weight: float = 0.25,
                  max_grad_norm: Optional[float] = None,
                  remat: Optional[bool] = None, device="cuda", mesh=None):
-        if mesh is not None and mesh.mp > 1:
-            raise ValueError(
-                "CompiledTrainStep: under mp > 1 Megatron's pair all-reduces "
-                "inside the backward, on autograd's own thread, where a "
-                "segmented capture cannot close its graph; use "
-                "make_train_step(..., mesh=mesh)")
         self.cfg, self.params, self.batch = cfg, params, batch
-        self.mesh = mesh if mesh is not None and mesh.dp > 1 else None
+        self.mesh = mesh if mesh is not None and mesh.dp * mesh.mp > 1 \
+            else None
         self.device = resolve_device(device)
         self.remat = self.device.type == "cuda" if remat is None else remat
         self.loss_weights = (dir_weight, aux_weight)
@@ -414,22 +418,31 @@ class CompiledTrainStep:
         points, num, *targets = self._inputs
         targets = Targets(*targets)
         leaves = trainable(self.params)
-        rows = slice(None)               # the warm runs take this rank's share
+        rows, tp = slice(None), None     # the warm runs: this rank's share
         if self.mesh is not None:
             share = B // self.mesh.dp
             rows = slice(self.mesh.dp_rank * share,
                          (self.mesh.dp_rank + 1) * share)
+            tp = self.mesh.mp_group
 
         def forward_backward():
             loss = batched_loss(self.params, points[rows], num[rows],
                                 Targets(*(t[rows] for t in targets)), cfg,
-                                self.remat, *self.loss_weights, device=dev)
+                                self.remat, *self.loss_weights, device=dev,
+                                tp=tp)
             torch.autograd.grad(loss, leaves, allow_unused=True)
 
-        capture = capture_graph if self.mesh is None else capture_segments
+        def step():
+            return self.eager(points, num, targets)
+        if self.mesh is None:
+            captured = capture_graph(step, forward_backward, dev,
+                                     self.WARM_RUNS)
+        else:
+            captured = capture_segments(step, forward_backward, dev,
+                                        self.WARM_RUNS,
+                                        across_threads=tp is not None)
         self._graph, self._loss, self.graph_launches, self.graph_pool_bytes \
-            = capture(lambda: self.eager(points, num, targets),
-                      forward_backward, dev, self.WARM_RUNS)
+            = captured
         self.segments = 1 if self.mesh is None else self._graph.segments
         self.capture_seconds = time.perf_counter() - t0
         return self

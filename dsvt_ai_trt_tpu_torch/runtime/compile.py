@@ -34,12 +34,13 @@ never stored: a ``jax.export`` blob is compiled on its device when loaded
 too.
 
 A program with collectives in it (the tensor- and spatially-sharded
-forwards, ``Engine(..., tp=)`` / ``Engine(..., spatial=)``, and the dp
-training step) is captured in segments (``capture_segments``): the graph
-closes at each collective, the collective runs between two graph launches
-at replay, through its group's own transport (gloo: a copy to the host,
-the exchange, a copy back), into static buffers, and the next graph reads
-them.
+forwards, ``Engine(..., tp=)`` / ``Engine(..., spatial=)``, and the
+training step under a mesh, whose tensor-parallel backward reaches its
+collectives on autograd's thread) is captured in segments
+(``capture_segments``): the graph closes at each collective, the
+collective runs between two graph launches at replay, through its group's
+own transport (gloo: a copy to the host, the exchange, a copy back), into
+static buffers, and the next graph reads them.
 
 Not here, on purpose: ``torch.export``, which cannot see inside the
 ``ctypes`` kernels.  Nor does the JAX package's
@@ -228,20 +229,32 @@ class SegmentedGraph:
 
 
 class _Segmenter:
-    """The hook of a segmented capture (``collectives.intercepted``)."""
+    """The hook of a segmented capture (``collectives.intercepted``).
+    Every graph is captured on ``stream``; ``mode`` is CUDA's capture mode
+    ("global", or "relaxed" where a graph may end on another thread than
+    the one that began it)."""
 
-    def __init__(self, program: SegmentedGraph):
+    def __init__(self, program: SegmentedGraph, stream, mode: str):
         self.program = program
+        self.stream, self.mode = stream, mode
         self.pool = torch.cuda.graph_pool_handle()
         self.open = False
 
+    def _on_stream(self, what: str) -> None:
+        # autograd runs a node on its forward's stream: the capture stream
+        if torch.cuda.current_stream(self.stream.device) != self.stream:
+            raise RuntimeError(f"capture_segments: {what} a graph off the "
+                               "capture stream")
+
     def begin(self) -> None:
+        self._on_stream("beginning")
         graph = torch.cuda.CUDAGraph()
-        graph.capture_begin(pool=self.pool)
+        graph.capture_begin(pool=self.pool, capture_error_mode=self.mode)
         self.program.graphs.append(graph)
         self.open = True
 
     def end(self) -> None:
+        self._on_stream("ending")
         self.open = False
         self.program.graphs[-1].capture_end()
 
@@ -261,20 +274,34 @@ class _Segmenter:
         return out[0] if kind == "all_reduce" else out
 
 
-def capture_segments(fn, warm, device, warm_runs: int):
+def capture_segments(fn, warm, device, warm_runs: int,
+                     across_threads: bool = False):
     """``capture_graph`` for a program with collectives in it: the same
     warm runs (they communicate, so every rank must run as many), then
     ``fn()`` captured into a ``SegmentedGraph`` whose graph closes at each
-    collective this thread reaches (``collectives.intercepted``; one from
-    another thread raises) and opens again after it, on one capture
-    stream.  The capture runs no collective.  Returns (the program, what
-    ``fn`` returned, the kernel launches recorded over every segment, the
-    device memory the capture reserved: the pool and the steps' static
-    buffers).  A failed capture raises, its open graph ended."""
+    collective this thread reaches (``collectives.intercepted``), or
+    autograd's thread reaches carrying this thread's hook (``collectives.
+    carried``: a tensor-parallel backward and its recomputation), and
+    opens again after it, on one capture stream; any other thread's
+    collective raises.  The capture runs no collective.
+
+    ``across_threads``: the program's collectives include ones autograd's
+    thread reaches, so a graph that this thread began may end on that
+    thread and the reverse.  CUDA allows that only in its relaxed capture
+    mode, which also stops refusing calls that are unsafe in a capture (a
+    synchronisation, a copy to the host): ``SyncGuard`` on the CPU is then
+    the check that none is made.  Without it, the capture mode is
+    "global".
+
+    Returns (the program, what ``fn`` returned, the kernel launches
+    recorded over every segment, the device memory the capture reserved:
+    the pool and the steps' static buffers).  A failed capture raises, its
+    open graph ended."""
     before = _warm(warm, device, warm_runs)
     program = SegmentedGraph()
-    seg = _Segmenter(program)
     stream = torch.cuda.Stream(device)
+    seg = _Segmenter(program, stream,
+                     "relaxed" if across_threads else "global")
     with kernels.captured() as launches, torch.cuda.stream(stream), \
             collectives.intercepted(seg):
         seg.begin()

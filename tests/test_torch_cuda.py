@@ -18,7 +18,8 @@ nms_peel bit-exact (kept set and count: boolean algebra).  The engine's
 replays bit-exact against ``Engine.eager`` at a tiny configuration: the
 same kernels on the same inputs; the scan graph's frames bit-exact against
 the per-frame engine's replays; a segmented capture
-(``capture_segments``, on a one-rank gloo group) and the engines captured
+(``capture_segments``, on a one-rank gloo group; also across autograd's
+thread, with Megatron's pair in a backward) and the engines captured
 in segments (``Engine(..., tp=)``, ``Engine(..., spatial=)``) bit-exact
 against their eager runs.  The compiled training step against eager
 steps from the same weights: the loss at 1e-5 relative, each leaf within
@@ -539,6 +540,48 @@ def test_capture_segments_refuses_another_threads_collective(dev, gloo1):
     with pytest.raises(RuntimeError, match="cannot be captured"):
         capture_segments(fn, lambda: None, dev, 1)
     assert float(collectives.all_reduce(x + 1, gloo1).sum()) == 16.0
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_capture_segments_across_autograd_thread(dev, gloo1, remat):
+    """Megatron's pair around a small MLP, its loss and its backward,
+    captured across threads (``across_threads``): ``reduce_from_tp``'s
+    all-reduce on this thread, ``copy_to_tp``'s in the backward on
+    autograd's, and with a non-reentrant checkpoint (``collectives.
+    carrying``) ``reduce_from_tp``'s again in the recomputation there.
+    Segments: 1 + the 2 (3) collectives; replays of new inputs equal
+    the eager run bit for bit."""
+    from torch.utils.checkpoint import checkpoint
+    gen = torch.Generator().manual_seed(0)
+    x, w1, w2 = (torch.randn(s, generator=gen).to(dev).requires_grad_()
+                 for s in ((512, 64), (64, 128), (128, 64)))
+
+    def block(inp):
+        h = torch.relu(collectives.copy_to_tp(inp, gloo1) @ w1)
+        # tanh keeps its output, so a recomputation runs to the end
+        return torch.tanh(collectives.reduce_from_tp(h @ w2, gloo1))
+
+    def fn():
+        for t in (x, w1, w2):
+            t.grad = None
+        run = collectives.carrying(block)
+        y = (checkpoint(run, x, use_reentrant=False,
+                        preserve_rng_state=False) if remat else run(x))
+        (y * y).sum().backward()
+        return [t.grad for t in (x, w1, w2)]
+
+    program, out, _launches, _nbytes = capture_segments(
+        fn, fn, dev, 2, across_threads=True)
+    assert program.segments == 1 + 2 + remat
+    for seed in (1, 2):
+        with torch.no_grad():
+            x.copy_(torch.randn(x.shape, generator=torch.Generator()
+                                .manual_seed(seed)).to(dev))
+        collectives.reset_stats()
+        program.replay()
+        assert collectives.stats()["calls"] == 2 + remat
+        for got, want in zip(out, fn()):
+            assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("group", ["tp", "spatial"])

@@ -7,9 +7,9 @@ tests/test_torch_parallel.py runs them) runs each mode's compiled
 counterpart (``dryrun.graph_task``): dp through ``make_dp_engine``, mp
 through ``Engine(..., tp=)`` at fp32 (Megatron's route) and bf16 (the
 heads' gather), sp through ``Engine(..., spatial=)`` at fp32 and bf16, and
-``CompiledTrainStep`` under a dp = 2 mesh (``dryrun.compiled_step_task``).
-On the CPU the engines and the step run their eager programs, which is what
-a card captures:
+``CompiledTrainStep`` under a dp = 2 and an mp = 2 mesh
+(``dryrun.compiled_step_task``).  On the CPU the engines and the step run
+their eager programs, which is what a card captures:
 
 * (a) breaks: a ``dryrun.BreakRecorder`` runs every collective through the
   real transport and records, per break, the static buffers a segmented
@@ -17,7 +17,7 @@ a card captures:
   returned, and the breaks a frame equal ``dryrun.breaks_per_frame`` (dp at
   mp = 1: none), pinned here at ``DEFAULT_CONFIG`` too;
 * (b) the sync guard (``runtime.compile.SyncGuard``) finds no host read in
-  the dp, mp and sp forwards or the dp train step, outside the two
+  the dp, mp and sp forwards or the dp and mp train steps, outside the two
   transports (and the kernels' plain versions, as in
   tests/test_torch_graph.py);
 * (c) the fp32 dp, mp and sp programs against the JAX package's jitted
@@ -27,8 +27,14 @@ a card captures:
 * (d) the compiled step under the dp mesh equals ``make_train_step(...,
   mesh=)``'s eager step bit for bit over 3 steps, with one break a step
   (gradients and loss in one all-reduce);
+* (e) the compiled step under the mp = 2 mesh, with ``remat`` off and on
+  and with the clip, equals the eager step bit for bit, and its breaks a
+  step equal ``dryrun.breaks_per_step`` (Megatron's collectives in the
+  forward, the backward and the recomputation; the clip's);
 * a collective reached from another thread while one thread intercepts
-  raises.
+  raises, and a backward run on another thread reaches the hook of the
+  thread that ran its forward, its checkpoint's recomputation included
+  (``collectives.carried``, ``collectives.carrying``).
 """
 
 import dataclasses
@@ -55,6 +61,10 @@ from dsvt_ai_trt_tpu_torch.parallel import collectives, dryrun
 MODES = [("dp", "fp32", 2, 0), ("mp", "fp32", 1, 1), ("mp", "bf16", 1, 2),
          ("sp", "fp32", 1, 3), ("sp", "bf16", 1, 4)]
 IDS = [f"{m}_{p}" for m, p, _n, _i in MODES]
+CLIP = 1.0      # below the tiny model's global gradient norm: clipping acts
+# the mp = 2 steps: (remat, clip, index of the task in the world's results)
+MP_STEPS = [(False, None, 6), (True, None, 7), (True, CLIP, 8)]
+MP_IDS = ["plain", "remat", "remat_clip"]
 
 
 def port_cfg(cfg, **kw) -> DSVTConfig:
@@ -83,6 +93,9 @@ def world2(inputs):
              for mode, p, n, _i in MODES]
     tasks.append((dryrun.compiled_step_task, (port_cfg(cfg), params, pts,
                                               nums, targets)))
+    tasks += [(dryrun.compiled_step_task, (port_cfg(cfg), params, pts, nums,
+                                           targets, 1, 2, remat, clip))
+              for remat, clip, _i in MP_STEPS]
     out = dryrun.spawn(dryrun.run_tasks, 2, "cpu", (tasks,))
     for rank in out:
         assert rank["foreign_modules"] == []
@@ -171,6 +184,91 @@ def test_compiled_step_under_dp_mesh_equals_eager(world2):
     assert world2[0][5]["losses"] == world2[1][5]["losses"]
     losses = [got for got, _ in world2[0][5]["losses"]]
     assert losses[-1] < losses[0]
+
+
+@pytest.mark.parametrize("remat,clip,i", MP_STEPS, ids=MP_IDS)
+def test_compiled_step_under_mp_mesh_equals_eager(inputs, world2, remat,
+                                                  clip, i):
+    cfg = port_cfg(inputs[0])
+    want = dryrun.breaks_per_step(cfg, 1, 2, 2, remat, clip is not None)
+    for rank in world2:
+        res = rank[i]
+        (got, eager), = res["losses"]
+        assert got == eager and res["bit_equal"]
+        assert len(res["breaks"]) == want
+        for brk in res["breaks"]:
+            assert brk["kind"] == "all_reduce"
+            assert brk["static"] == brk["eager"], brk
+    assert world2[0][i]["losses"] == world2[1][i]["losses"]
+    assert world2[0][i]["losses"] == world2[0][6]["losses"]
+
+
+@pytest.mark.parametrize("remat,clip,i", MP_STEPS, ids=MP_IDS)
+def test_no_host_read_in_the_mp_step(world2, remat, clip, i):
+    for rank in world2:
+        assert rank[i]["hits"] == []
+
+
+def test_breaks_per_step_at_the_default_config():
+    """At ``DEFAULT_CONFIG`` (8 encoders): 72 breaks a frame with
+    ``remat``, 56 without; one more for the dp all-reduce and, under
+    mp > 1, one for the clip."""
+    cfg = DEFAULT_CONFIG
+    assert dryrun.breaks_per_step(cfg, 1, 2, 2, True, False) == 144
+    assert dryrun.breaks_per_step(cfg, 1, 2, 2, False, False) == 112
+    assert dryrun.breaks_per_step(cfg, 2, 2, 2, True, True) == 74
+    assert dryrun.breaks_per_step(cfg, 2, 1, 2, True, True) == 1
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_backward_on_another_thread_reaches_the_hook(remat):
+    """A forward under ``intercepted`` on this thread, its backward run
+    from another thread, as autograd runs a CUDA backward: ``copy_to_tp``'s
+    all-reduce and the checkpoint's recomputed ``reduce_from_tp`` reach
+    the hook there; the gradients equal the plain MLP's (the hook is a
+    one-rank all-reduce)."""
+    from torch.utils.checkpoint import checkpoint
+    seen = []
+
+    def hook(kind, x, group):
+        seen.append((kind, threading.get_ident()))
+        return x.clone()
+
+    gen = torch.Generator().manual_seed(0)
+    x, w1, w2 = (torch.randn(s, generator=gen, requires_grad=True)
+                 for s in ((6, 4), (4, 8), (8, 4)))
+
+    def block(inp):
+        h = torch.relu(collectives.copy_to_tp(inp, None) @ w1)
+        # tanh keeps its output, so a recomputation runs to the end
+        return torch.tanh(collectives.reduce_from_tp(h @ w2, None))
+
+    errors = []
+
+    def backward(loss):
+        try:
+            loss.backward()
+        except RuntimeError as exc:
+            errors.append(exc)
+
+    with collectives.intercepted(hook):
+        run = collectives.carrying(block)
+        y = (checkpoint(run, x, use_reentrant=False,
+                        preserve_rng_state=False) if remat else run(x))
+        thread = threading.Thread(target=backward, args=((y * y).sum(),))
+        thread.start()
+        thread.join()
+    assert errors == []
+    main = threading.get_ident()
+    assert [kind for kind, _ in seen] == ["all_reduce"] * (2 + remat)
+    assert seen[0][1] == main and all(t != main for _, t in seen[1:])
+    got = [t.grad.clone() for t in (x, w1, w2)]
+    for t in (x, w1, w2):
+        t.grad = None
+    y = torch.tanh(torch.relu(x @ w1) @ w2)
+    (y * y).sum().backward()
+    for a, t in zip(got, (x, w1, w2)):
+        assert torch.equal(a, t.grad)
 
 
 def test_collective_from_another_thread_raises():

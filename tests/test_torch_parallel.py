@@ -34,6 +34,8 @@ from dsvt_ai_trt_tpu_torch.parallel import dryrun, mesh
 FRAMES = 4
 CLIP = 1.0      # below the tiny model's global gradient norm: clipping acts
 PARITY_SCORE = 0.3 + 0.05   # tests/test_torch_parity.py's MIN_SCORE
+# CompiledTrainStep in the world of 4: (dp, mp, index of its task)
+COMPILED = [(2, 2, 10), (1, 4, 11)]
 
 
 def port_cfg(cfg, **kw) -> DSVTConfig:
@@ -104,7 +106,8 @@ def world2(inputs, calibrated):
 @pytest.fixture(scope="module")
 def world4(inputs, calibrated):
     """mp=4 at fp32 and bf16 (before NMS), and the train step at dp=2 x mp=2 (also with
-    ``remat``), mp=4 and unsharded, in one world of 4."""
+    ``remat``), mp=4 and unsharded, eager and (dp=2 x mp=2, mp=4) through
+    ``CompiledTrainStep``, in one world of 4."""
     cfg, params, pts, nums, targets = inputs
     cal_cfg, cal_params, cal_pts, cal_nums = calibrated
     c32, c16 = port_cfg(cfg), port_cfg(cal_cfg)
@@ -126,6 +129,9 @@ def world4(inputs, calibrated):
                                   1, 1, CLIP)),
              (dryrun.train_task, (c32, params, pts[:2], nums[:2], targets,
                                   2, 2, None, True))]
+    tasks += [(dryrun.compiled_step_task, (c32, params, pts[:2], nums[:2],
+                                           targets, 1, mp))
+              for _dp, mp, _i in COMPILED]
     return _spawn(4, tasks)
 
 
@@ -296,6 +302,44 @@ def step_gate(key, new, ref_new, grad, ref_grad, lr=1e-4):
     assert float(d[big].max(initial=0)) <= 1e-4 * float(
         np.abs(ref_new).max()), key
     assert float(d.max(initial=0)) <= 2 * lr + 1e-6, key
+
+
+@pytest.mark.parametrize("dp,mp,i", COMPILED, ids=["dp2_mp2", "mp4"])
+def test_compiled_sharded_step(inputs, world4, dp, mp, i):
+    """``CompiledTrainStep`` under the dp x mp mesh (on the CPU its eager
+    step, the program the card captures in segments): the loss equal to
+    JAX's batched_loss at 1e-4 relative and to the eager step's, every
+    rank's the same, and the step's leaves under ``step_gate`` against the
+    unsharded eager step's."""
+    cfg, params, pts, nums, targets = inputs
+    ref = float(jax.jit(lambda p: jax_loss(
+        p, pts[:2], nums[:2], JaxTargets(*targets), cfg))(params))
+    got = world4[0][i]
+    (loss, eager), = got["losses"]
+    assert loss == eager and got["bit_equal"]
+    assert abs(loss - ref) <= 1e-4 * abs(ref)
+    for rank in world4:
+        assert rank[i]["losses"] == got["losses"]
+    whole = world4[0][6]
+    assert set(got["leaves"]) == set(whole["leaves"])
+    for key, want in whole["leaves"].items():
+        step_gate(key, got["leaves"][key], want, got["grads"][key],
+                  whole["grads"][key])
+
+
+@pytest.mark.parametrize("dp,mp,i", COMPILED, ids=["dp2_mp2", "mp4"])
+def test_compiled_sharded_step_breaks(inputs, world4, dp, mp, i):
+    """Its collectives, each a graph break on the card, number
+    ``dryrun.breaks_per_step`` on every rank (the dp all-reduce included
+    at dp=2); the static buffers match what the transport returned; the
+    sync guard finds no host read outside the transports."""
+    cfg = port_cfg(inputs[0])
+    want = dryrun.breaks_per_step(cfg, dp, mp, 2, False, False)
+    for rank in world4:
+        res = rank[i]
+        assert len(res["breaks"]) == want
+        assert all(b["static"] == b["eager"] for b in res["breaks"])
+        assert res["hits"] == []
 
 
 @pytest.mark.slow

@@ -15,9 +15,9 @@ the CPU at the tiny configuration (the captures themselves run on the card:
 * ``CompiledTrainStep`` on the CPU equals ``make_train_step``'s eager step
   bit for bit; ``load_train_state`` writes into the addresses the step
   holds and a resumed step equals the eager path's bit for bit; a step
-  draws no random number and leaves the RNG state as it was; a dp mesh is
-  taken and an mp > 1 mesh refused; ``refold`` keeps the derived weights'
-  addresses;
+  draws no random number and leaves the RNG state as it was; a dp mesh and
+  an mp > 1 mesh are taken (on the CPU the mp step equals the eager
+  one); ``refold`` keeps the derived weights' addresses;
 * the scan engine (``Engine(..., batch=B)``) on the CPU equals the JAX
   package's jitted ``forward_scan`` frame for frame (counts and occupancy
   exact, boxes 1e-4), and the guard finds nothing around ``forward_batch``
@@ -226,19 +226,24 @@ def test_step_leaves_the_rng_state_unchanged():
 
 @pytest.mark.parametrize("dp,mp", [(2, 1), (1, 2)])
 def test_compiled_step_refuses_a_mesh(dp, mp):
-    """A dp mesh (mp = 1) is captured in segments; under mp > 1 the step
-    is refused: Megatron's pair all-reduces inside the backward, on
-    autograd's own thread."""
+    """A dp mesh (mp = 1) and an mp > 1 mesh are both taken (the card
+    captures them in segments); on the CPU the mp step equals
+    ``make_train_step``'s under the same mesh bit for bit.  This process
+    has no group, so the mesh's groups are None: the sharded step itself
+    runs in tests/test_torch_parallel.py's world of 4."""
     mesh = Mesh(dp, mp, 0, 0)
-    if mp > 1:
-        with pytest.raises(ValueError, match="backward, on autograd's own "
-                                             "thread"):
-            CompiledTrainStep(tiny_config(), _params(), 2, device="cpu",
-                              mesh=mesh)
-        return
     step = CompiledTrainStep(tiny_config(), _params(), 2, device="cpu",
                              mesh=mesh)
     assert step.mesh is mesh
+    if mp > 1:
+        ref = _params()
+        opt, eager = make_train_step(tiny_config(), ref, device="cpu",
+                                     mesh=mesh)
+        batch = _batch()
+        assert torch.equal(step(*batch), eager(*batch))
+        for a, b in zip(_state(step.params, step.optimizer),
+                        _state(ref, opt)):
+            assert torch.equal(a, b)
 
 
 def test_refold_keeps_the_derived_weights_addresses():
