@@ -65,7 +65,8 @@ from ..model.detector import forward, forward_spatial
 from ..runtime.compile import Engine, SyncGuard
 from . import collectives, spatial
 from .collectives import init_group
-from .mesh import gather_params, make_dp_engine, make_mesh, rank_params
+from .mesh import (COL, COL_BIAS, ROW, gather_params, make_dp_engine,
+                   make_mesh, rank_params)
 from .training import (CompiledTrainStep, Targets, make_train_step,
                        random_targets)
 
@@ -248,14 +249,16 @@ def breaks_per_step(cfg: DSVTConfig, dp: int, mp: int, frames: int,
     in ``remat``'s recomputation, and five ``copy_to_tp`` an encoder in the
     backward (x_q, the position MLP's hidden h1, its w2 and b2 folded into
     the q/k columns, the FFN's input x1); with dp > 1 the one all-reduce of
-    the gradients and the loss; with a clip under mp > 1 the all-reduce of
+    the gradients and the loss; under mp > 1 the one all-reduce that
+    averages the replicated leaves' gradients, and with a clip the one of
     the sharded gradients' squares.  ``DEFAULT_CONFIG``: 72 a frame with
     ``remat``, 56 without.  tests/test_torch_mesh_graph.py and
     tests/test_torch_parallel.py count them on the CPU."""
     per_frame = 0
     if mp > 1:
         per_frame = 2 * cfg.num_blocks * (2 + 5 + (2 if remat else 0))
-    return frames // dp * per_frame + (dp > 1) + (clip and mp > 1)
+    return (frames // dp * per_frame + (dp > 1)
+            + (mp > 1) * (1 + bool(clip)))
 
 
 class BreakRecorder:
@@ -332,39 +335,61 @@ def compiled_step_task(rank, world, device, cfg: DSVTConfig, params, points,
                        nums, targets, steps: int = 3, mp: int = 1,
                        remat: bool = False,
                        max_grad_norm: Optional[float] = None) -> dict:
-    """``CompiledTrainStep`` under a dp x mp mesh (dp = world / mp) against
-    ``make_train_step(..., mesh=)``'s eager step, each on its own copy of
-    the weights, ``steps`` steps of the global batch, with or without
-    ``remat`` and the clip; the first compiled step inside a ``SyncGuard``
-    with a ``BreakRecorder``.  Returns both losses a step, whether every
-    leaf and gradient ended bit-equal, the guard's hits, the breaks of a
-    step, and the compiled step's leaves and gradients whole after its
-    first step (``train_task``'s keys)."""
-    mesh = make_mesh(world // mp, mp)
-    p_graph = rank_params(params, mesh, device)
-    p_eager = rank_params(params, mesh, device)
-    kw = dict(mesh=mesh, device=device, remat=remat,
-              max_grad_norm=max_grad_norm)
-    compiled = CompiledTrainStep(cfg, p_graph, len(points), **kw)
-    _opt, eager = make_train_step(cfg, p_eager, **kw)
+    """``held_steps`` under a dp x mp mesh (dp = world / mp), ``steps``
+    replays of the global batch, with or without ``remat`` and the clip,
+    the first compiled step inside a ``SyncGuard`` with a
+    ``BreakRecorder``.  Returns both losses a step (compiled, eager),
+    whether every leaf and gradient was bit-equal at every step, the
+    guard's hits, the breaks of a step, and the compiled step's leaves and
+    gradients whole after its first step (``train_task``'s keys)."""
+    guard = SyncGuard()
+    recorder = BreakRecorder(guard)
+
+    @contextlib.contextmanager
+    def watched():
+        with guard, collectives.intercepted(recorder):
+            yield
+
     batch = (torch.as_tensor(points, device=device),
              torch.as_tensor(nums, device=device),
              Targets(*(torch.as_tensor(t, device=device) for t in targets)))
-    guard = SyncGuard()
-    recorder = BreakRecorder(guard)
-    with guard, collectives.intercepted(recorder):
-        first = compiled(*batch)
-    losses = [(float(first), float(eager(*batch)))]
-    whole = {key: {k: v.cpu().numpy()
-                   for k, v in gather_params(p_graph, mesh, grads).items()}
-             for key, grads in (("leaves", False), ("grads", True))}
-    for _ in range(steps - 1):
-        losses.append((float(compiled(*batch)), float(eager(*batch))))
-    same = all(torch.equal(a, b) and torch.equal(a.grad, b.grad)
-               for (_, a), (_, b) in zip(weights.named_leaves(p_graph),
-                                         weights.named_leaves(p_eager)))
-    return {"losses": losses, "bit_equal": same, "hits": guard.hits,
-            "breaks": recorder.breaks, **whole}
+    rec, _eager, _graph = held_steps(
+        cfg, params, make_mesh(world // mp, mp), batch, device, steps,
+        f"rank {rank}", remat, max_grad_norm, watched())
+    return {"losses": [(r["loss_graph"], r["loss_eager"])
+                       for r in rec["steps"]],
+            "bit_equal": all(r["bit_equal"] for r in rec["steps"]),
+            "hits": guard.hits, "breaks": recorder.breaks,
+            "leaves": rec["leaves"], "grads": rec["grads"]}
+
+
+def replicated_moments_task(rank, world, device, cfg: DSVTConfig, params,
+                            points, nums, targets) -> dict:
+    """One eager step under an mp = world mesh after each rank has moved
+    its copy of every replicated leaf one ulp up or down at random (seeded
+    by the rank), so that the ranks' gradients of those leaves differ, as
+    the card's atomics make them differ: this rank's copies of the
+    replicated leaves and their AdamW moments after the step, by path."""
+    mesh = make_mesh(1, world)
+    p = rank_params(params, mesh, device)
+    gen = torch.Generator(device=device).manual_seed(rank + 1)
+    replicated = [(weights.keystr(path), t)
+                  for path, t in weights.named_leaves(p)
+                  if not (path[0] == "blocks"
+                          and path[-1] in COL + COL_BIAS + ROW)]
+    with torch.no_grad():
+        for _, t in replicated:
+            up = torch.rand(t.shape, generator=gen, device=t.device) < 0.5
+            t.copy_(torch.nextafter(t, torch.where(
+                up, torch.inf, -torch.inf).to(t.dtype)))
+    weights.refold(p)
+    opt, step = make_train_step(cfg, p, mesh=mesh, device=device)
+    step(torch.as_tensor(points, device=device),
+         torch.as_tensor(nums, device=device),
+         Targets(*(torch.as_tensor(t, device=device) for t in targets)))
+    return {name: {"leaf": t.detach().cpu().numpy(), **{
+        key: opt.state[t][key].cpu().numpy()
+        for key in ("exp_avg", "exp_avg_sq")}} for name, t in replicated}
 
 
 # --------------------------------------------------------------------------
@@ -403,27 +428,32 @@ def step_gate(key, new, ref_new, grad, ref_grad, lr=1e-4,
 
 
 def held_steps(cfg: DSVTConfig, params, mesh, batch: tuple, device,
-               replays: int, gate: Callable = step_gate, what: str = "",
-               first: Optional[Callable] = None) -> tuple:
+               replays: int, what: str = "", remat: Optional[bool] = None,
+               max_grad_norm: Optional[float] = None,
+               watch=None) -> tuple:
     """``CompiledTrainStep`` under ``mesh`` against ``make_train_step(...,
     mesh=)``'s eager step, each on its own ``rank_params(params)``, on the
-    global ``batch`` (points, nums, ``Targets``, on ``device``): the
-    compiled step warms up and captures with the launch counters at 0,
-    then ``replays`` times the eager step and a replay from the same state
+    global ``batch`` (points, nums, ``Targets``, on ``device``), with
+    ``remat`` (default: on the card) and the clip as given: the compiled
+    step warms up and captures with the launch counters at 0, then
+    ``replays`` times the eager step and a replay from the same state
     (before every replay but the first, the eager step's leaves, moments
     and count are written into the compiled step's in place): each
     replay's loss within 1e-5 relative of the eager step's, and this
-    rank's every leaf and gradient held by ``gate`` (``step_gate``'s
-    arguments).  ``first(eager params)``, if given, runs after the first
-    eager step.  Every rank of the mesh calls it in step.  Returns (the
+    rank's every leaf and gradient under ``step_gate``.  The first replay
+    runs inside the context manager ``watch`` if one is given (the CPU
+    tests' guard).  Every rank of the mesh calls it in step.  Returns (the
     record: the launches over all of it, a row per replay, replays,
-    segments, pool MB and capture seconds (None on the CPU); the eager
-    step and the compiled one as functions of no argument)."""
+    segments, pool MB and capture seconds (None on the CPU), and the
+    compiled step's leaves and gradients whole after its first replay,
+    keyed as ``gather_params``; the eager step and the compiled one as
+    functions of no argument)."""
     p_eager = rank_params(params, mesh, device)
     p_graph = rank_params(params, mesh, device)
-    opt, eager = make_train_step(cfg, p_eager, mesh=mesh, device=device)
-    compiled = CompiledTrainStep(cfg, p_graph, len(batch[0]), mesh=mesh,
-                                 device=device)
+    kw = dict(mesh=mesh, device=device, remat=remat,
+              max_grad_norm=max_grad_norm)
+    opt, eager = make_train_step(cfg, p_eager, **kw)
+    compiled = CompiledTrainStep(cfg, p_graph, len(batch[0]), **kw)
     ref_leaves = weights.named_leaves(p_eager)
     leaves = weights.named_leaves(p_graph)
     kernels.reset_counts()
@@ -442,19 +472,27 @@ def held_steps(cfg: DSVTConfig, params, mesh, batch: tuple, device,
         t0 = time.perf_counter()
         want = float(eager(*batch))
         seconds = time.perf_counter() - t0
-        if k == 0 and first is not None:
-            first(p_eager)
-        got = float(compiled(*batch))
+        with (watch if k == 0 and watch is not None
+              else contextlib.nullcontext()):
+            got = compiled(*batch)
+        got = float(got)
+        if k == 0:
+            whole = {key: {name: t.cpu().numpy() for name, t in
+                           gather_params(p_graph, mesh, grads).items()}
+                     for key, grads in (("leaves", False), ("grads", True))}
         if abs(got - want) > 1e-5 * abs(want):
             raise AssertionError(f"{what}: replay {k} loss {got}, the eager "
                                  f"step's {want}")
         names = [weights.keystr(path) for path, _ in ref_leaves]
-        diffs = [gate(name, t.detach().cpu().numpy(),
-                      r.detach().cpu().numpy(), t.grad.cpu().numpy(),
-                      r.grad.cpu().numpy(), what=f"{what}: replay {k}")
+        diffs = [step_gate(name, t.detach().cpu().numpy(),
+                           r.detach().cpu().numpy(), t.grad.cpu().numpy(),
+                           r.grad.cpu().numpy(), what=f"{what}: replay {k}")
                  for name, (_, r), (_, t) in zip(names, ref_leaves, leaves)]
         worst = max(range(len(diffs)), key=lambda i: diffs[i][0])
         rows.append({"loss_eager": want, "loss_graph": got,
+                     "bit_equal": all(
+                         torch.equal(t, r) and torch.equal(t.grad, r.grad)
+                         for (_, r), (_, t) in zip(ref_leaves, leaves)),
                      "eager_seconds": seconds,
                      "grad_rel_diff_max": diffs[worst][0],
                      "grad_rel_diff_max_leaf": names[worst],
@@ -465,7 +503,7 @@ def held_steps(cfg: DSVTConfig, params, mesh, batch: tuple, device,
     record = {"launches": kernels.counts(), "steps": rows,
               "replays": compiled.replays, "segments": compiled.segments,
               "graph_pool_mb": None if pool is None else pool / 2**20,
-              "capture_seconds": compiled.capture_seconds}
+              "capture_seconds": compiled.capture_seconds, **whole}
     return (record, lambda: eager(*batch), lambda: compiled(*batch))
 
 
@@ -524,10 +562,10 @@ def _same_boxes(mode: str, sharded: dict, whole: dict) -> str:
     return f"boxes={n} == unsharded (max |d| {d:.2e})"
 
 
-def dryrun(rank, world, device, gate: Callable = step_gate) -> dict:
+def dryrun(rank, world, device) -> dict:
     """The five modes (module docstring); rank 0 prints and checks.  The
     train steps run through ``CompiledTrainStep``, each held against its
-    eager step by ``gate`` (``held_steps``, one replay); on the card,
+    eager step (``held_steps``, one replay); on the card,
     where ``remat`` is on, a replay runs 1 + ``breaks_per_step``
     segments."""
     def say(line):
@@ -550,8 +588,9 @@ def dryrun(rank, world, device, gate: Callable = step_gate) -> dict:
 
     def held(dp, mp):
         rec, _eager, _graph = held_steps(cfg, raw, make_mesh(dp, mp),
-                                         step_batch, device, 1, gate,
+                                         step_batch, device, 1,
                                          f"dryrun dp={dp} mp={mp}")
+        del rec["leaves"], rec["grads"]
         want = 1 + breaks_per_step(cfg, dp, mp, batch, remat=True,
                                    clip=False)
         if rec["segments"] not in (None, want):
@@ -694,15 +733,13 @@ def _eager_and_graph(eager, graph, engine, n_frames: int) -> tuple:
 
 
 def card_modes(rank, world, device, frames: Dict[str, tuple], batch,
-               mark: Optional[Callable[[str], None]] = None,
-               gate: Callable = step_gate) -> dict:
+               mark: Optional[Callable[[str], None]] = None) -> dict:
     """chip_smoke.py's multi phase on a world of 2 sharing one card, at
     ``DEFAULT_CONFIG`` full caps and the seeded weights of its main path
     (``random_params(cfg, 0)``).  ``frames``: the three bench frames;
     ``batch``: (points, nums, targets) of the training steps, NumPy;
     ``mark``, if given, is called with each mode's name as the mode
-    starts; ``gate(key, new, ref_new, grad, ref_grad, what=...)`` holds
-    each leaf of a compiled step against the eager one (``step_gate``).
+    starts.
 
     Each forward mode runs its eager path and its compiled one, an
     ``Engine`` whose graph is captured in segments where the mode has a
@@ -713,7 +750,8 @@ def card_modes(rank, world, device, frames: Dict[str, tuple], batch,
     mesh (fp32, batch 2) against the eager step, from the same state each
     step (``held_steps``); mp_train's graph breaks at every collective of
     its forward, backward and recomputation, and it returns its first
-    eager step's loss, leaves and gradients whole (rank 0).  Per mode,
+    eager step's loss and its first replay's leaves and gradients whole
+    (rank 0).  Per mode,
     this rank's results for the parent to hold against its single-process
     runs."""
     mark = mark or (lambda _mode: None)
@@ -793,22 +831,16 @@ def card_modes(rank, world, device, frames: Dict[str, tuple], batch,
         # against eager steps from the same state (``held_steps``); dp=2
         # one frame a rank, mp=2 both frames a rank (Megatron's route: the
         # collectives inside the backward and its recomputation break the
-        # graph), whose first eager step's leaves go whole to the parent
+        # graph), whose first replay's leaves go whole to the parent
         for mode, mesh in (("dp_train", dp_mesh), ("mp_train", mp_mesh)):
             mark(mode)
             t0 = time.perf_counter()
-            whole = {}
-
-            def first(p, mesh=mesh, whole=whole):
-                if mesh.mp > 1:
-                    for key, grads in (("leaves", False), ("grads", True)):
-                        got = gather_params(p, mesh, grads)
-                        whole[key] = ({k: v.cpu().numpy()
-                                       for k, v in got.items()}
-                                      if rank == 0 else None)
             record, eager_fn, graph_fn = held_steps(
                 fp32, raw, mesh, step_args, device, TRAIN_REPLAYS,
-                gate, f"multi {mode} rank {rank}", first)
+                f"multi {mode} rank {rank}")
+            whole = {key: record.pop(key) for key in ("leaves", "grads")}
+            if mesh.mp == 1 or rank:
+                whole = {}
             _o, _c, eager_times = _measured(eager_fn, 1)
             _o, _c, graph_times = _measured(graph_fn, 1)
             res[mode] = {**record, **whole,
@@ -821,7 +853,7 @@ def card_modes(rank, world, device, frames: Dict[str, tuple], batch,
                 res[mode].update(
                     loss=record["steps"][0]["loss_eager"],
                     step_seconds=record["steps"][0]["eager_seconds"])
-            del eager_fn, graph_fn, first
+            del eager_fn, graph_fn
             torch.cuda.empty_cache()
     return res
 

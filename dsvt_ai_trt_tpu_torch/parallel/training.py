@@ -49,9 +49,12 @@ every gradient, flattened, with the loss as its last element), which is
 the gradient of JAX's global mean of the per-frame losses when the shares
 are equal; the returned loss is that global mean.  mp: the encoders run
 Megatron's route (model/backbone3d.py, ``live_weights``), each rank steps
-AdamW on its own shards and on its copy of the replicated leaves (their
-gradients are whole and equal on every mp rank), and ``weights.refold``
-refolds each shard.
+AdamW on its own shards and on its copy of the replicated leaves, and
+``weights.refold`` refolds each shard.  The replicated leaves' gradients
+are whole on every mp rank, equal but for rounding (the card's backward
+sums some with atomics, in another order in each process), so they are
+averaged over the mp group (one all-reduce, flattened): every rank then
+takes the same update, and its copies stay one array, as JAX's do.
 """
 
 from __future__ import annotations
@@ -278,6 +281,8 @@ def make_train_step(cfg: DSVTConfig, params, optimizer=None,
     sharded = [t for p, t in named_leaves(params) if tp is not None
                and p[0] == "blocks" and p[-1] in COL + COL_BIAS + ROW]
     leaves = trainable(params)
+    replicated = [t for t in leaves if tp is not None
+                  and not any(t is s for s in sharded)]
     for t in leaves:
         t.requires_grad_(True)
     optimizer = optimizer or default_optimizer(params)
@@ -308,6 +313,12 @@ def make_train_step(cfg: DSVTConfig, params, optimizer=None,
             for t, g in zip(leaves, grads):
                 t.grad.copy_(g.view_as(t))
             loss = loss.reshape(())
+        if replicated:         # the mp ranks' copies: one update
+            flat = all_reduce(torch.cat([t.grad.reshape(-1)
+                                         for t in replicated]), tp) / mesh.mp
+            for t, g in zip(replicated,
+                            flat.split([t.numel() for t in replicated])):
+                t.grad.copy_(g.view_as(t))
         if max_grad_norm is not None:
             clip_by_global_norm([t.grad for t in leaves], max_grad_norm,
                                 [t.grad for t in sharded], tp)
@@ -354,7 +365,8 @@ class CompiledTrainStep:
     recomputation, ``copy_to_tp`` in the backward, both on autograd's own
     thread (``collectives.carried``), so its graphs begin and end on
     different threads, in CUDA's relaxed capture mode; with dp > 1 the dp
-    all-reduce, and with a clip the tp all-reduce of the squared norm
+    all-reduce, then the mp average of the replicated leaves' gradients,
+    and with a clip the tp all-reduce of the squared norm
     (``parallel.dryrun.breaks_per_step`` counts them).  A capture or
     replay that fails raises; nothing falls back to the eager step on the
     card.  Recorded:

@@ -407,28 +407,12 @@ def test_scan_graph_equals_per_frame_replays(dev):
         scan(points[:2], [1, 2])
 
 
-def _step_gate(path, new, ref_new, grad, ref_grad, lr=1e-4):
-    """``chip_smoke.py:step_gate``'s rule for one AdamW step from the same
-    state: the gradient within 5e-3 of its largest (floor 5e-4); the
-    updated leaf within 1e-4 of its largest wherever the gradient exceeds
-    its own difference by 1e-6, and within 2 lr + 1e-6 elsewhere (where
-    the first step's lr * sign(g) may flip)."""
-    gdiff = (grad - ref_grad).abs()
-    gmax = float(ref_grad.abs().max())
-    assert float(gdiff.max()) <= max(5e-3 * gmax, 5e-4), path
-    d = (new - ref_new).abs()
-    big = ref_grad.abs() > gdiff + 1e-6
-    held = float(torch.where(big, d, torch.zeros_like(d)).max())
-    assert held <= 1e-4 * float(ref_new.abs().max()), path
-    assert float(d.max()) <= 2 * lr + 1e-6, path
-
-
 def test_compiled_train_step_equals_eager(dev, tmp_path):
     """``CompiledTrainStep`` at the tiny configuration (fp32, batch 2):
     three replays against three eager steps, each pair from the same state
     (the graph's leaves, moments and count set in place to the eager's
     before each replay): the loss at 1e-5 relative, every leaf under
-    ``_step_gate``; then a checkpoint of the graph's state resumes an
+    ``dryrun.step_gate``; then a checkpoint of the graph's state resumes an
     eager step held the same way to the graph's next replay."""
     from dsvt_ai_trt_tpu_torch.data import synthetic_batch
     from dsvt_ai_trt_tpu_torch.parallel.training import (
@@ -450,8 +434,9 @@ def test_compiled_train_step_equals_eager(dev, tmp_path):
         assert abs(lg - le) <= 1e-5 * abs(le)
         for (path, a), (_, b) in zip(weights.named_leaves(ref),
                                      weights.named_leaves(got)):
-            _step_gate(weights.keystr(path), b.detach(), a.detach(),
-                       b.grad, a.grad)
+            dryrun.step_gate(weights.keystr(path),
+                             *(t.detach().cpu().numpy()
+                               for t in (b, a, b.grad, a.grad)))
 
     def same_state():
         with torch.no_grad():

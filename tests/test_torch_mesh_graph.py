@@ -25,12 +25,17 @@ their eager programs, which is what a card captures:
   inside ``spatial_sharding`` over 2 of the 8 virtual devices: counts and
   occupancy exact, boxes within the golden's 1e-4;
 * (d) the compiled step under the dp mesh equals ``make_train_step(...,
-  mesh=)``'s eager step bit for bit over 3 steps, with one break a step
+  mesh=)``'s eager step bit for bit over 3 steps (``dryrun.held_steps``,
+  each replay from the eager step's state), with one break a step
   (gradients and loss in one all-reduce);
 * (e) the compiled step under the mp = 2 mesh, with ``remat`` off and on
   and with the clip, equals the eager step bit for bit, and its breaks a
   step equal ``dryrun.breaks_per_step`` (Megatron's collectives in the
-  forward, the backward and the recomputation; the clip's);
+  forward, the backward and the recomputation; the replicated leaves'
+  average; the clip's);
+* (f) with the ranks' copies of the replicated leaves nudged apart, the
+  mp = 2 step still gives both ranks the same AdamW moments of them (the
+  step averages their gradients over the mp group);
 * a collective reached from another thread while one thread intercepts
   raises, and a backward run on another thread reaches the hook of the
   thread that ran its forward, its checkpoint's recomputation included
@@ -96,6 +101,8 @@ def world2(inputs):
     tasks += [(dryrun.compiled_step_task, (port_cfg(cfg), params, pts, nums,
                                            targets, 1, 2, remat, clip))
               for remat, clip, _i in MP_STEPS]
+    tasks.append((dryrun.replicated_moments_task, (port_cfg(cfg), params,
+                                                   pts, nums, targets)))
     out = dryrun.spawn(dryrun.run_tasks, 2, "cpu", (tasks,))
     for rank in out:
         assert rank["foreign_modules"] == []
@@ -203,6 +210,23 @@ def test_compiled_step_under_mp_mesh_equals_eager(inputs, world2, remat,
     assert world2[0][i]["losses"] == world2[0][6]["losses"]
 
 
+def test_mp_ranks_take_one_update_of_the_replicated_leaves(world2):
+    """With each rank's copy of the replicated leaves moved one ulp at
+    random, so that their gradients differ between the ranks as the
+    card's atomics make them differ, the mp = 2 step averages those
+    gradients: both ranks' AdamW moments of every replicated leaf are
+    bit-equal (JAX keeps one array), while the leaves themselves still
+    differ by their nudges."""
+    mine, theirs = (rank[9] for rank in world2)
+    assert set(mine) == set(theirs) and len(mine) > 0
+    assert any(not np.array_equal(mine[k]["leaf"], theirs[k]["leaf"])
+               for k in mine)
+    for key, got in mine.items():
+        for m in ("exp_avg", "exp_avg_sq"):
+            np.testing.assert_array_equal(got[m], theirs[key][m],
+                                          err_msg=f"{key} {m}")
+
+
 @pytest.mark.parametrize("remat,clip,i", MP_STEPS, ids=MP_IDS)
 def test_no_host_read_in_the_mp_step(world2, remat, clip, i):
     for rank in world2:
@@ -212,11 +236,12 @@ def test_no_host_read_in_the_mp_step(world2, remat, clip, i):
 def test_breaks_per_step_at_the_default_config():
     """At ``DEFAULT_CONFIG`` (8 encoders): 72 breaks a frame with
     ``remat``, 56 without; one more for the dp all-reduce and, under
-    mp > 1, one for the clip."""
+    mp > 1, one for the replicated leaves' average and one for the
+    clip."""
     cfg = DEFAULT_CONFIG
-    assert dryrun.breaks_per_step(cfg, 1, 2, 2, True, False) == 144
-    assert dryrun.breaks_per_step(cfg, 1, 2, 2, False, False) == 112
-    assert dryrun.breaks_per_step(cfg, 2, 2, 2, True, True) == 74
+    assert dryrun.breaks_per_step(cfg, 1, 2, 2, True, False) == 145
+    assert dryrun.breaks_per_step(cfg, 1, 2, 2, False, False) == 113
+    assert dryrun.breaks_per_step(cfg, 2, 2, 2, True, True) == 75
     assert dryrun.breaks_per_step(cfg, 2, 1, 2, True, True) == 1
 
 
