@@ -22,10 +22,13 @@ Phases (any failure exits non-zero):
      kernels' inputs (a replay calls no Python); profile one eager frame
      by stage; hold each kernel against its plain PyTorch version on those
      inputs (B3 and B4 on all three frames, with B4's NMS kept
-     set and its count of 64-slot reruns; nms_peel bit-equal on all three
-     and on a constructed 500-box suppression chain, 250 rounds, where the
-     whole NMS on the card also equals the CPU's), and time kernel, plain
-     version
+     set and its count of 64-slot reruns; nms_peel, the IoU, the rounds
+     and the keep-first compaction in one launch, bit-equal in boxes and
+     count on all three frames' recorded (overlap, boxes, count,
+     threshold) and on a constructed 500-box suppression chain, 250
+     rounds, where the whole NMS on the card also equals the CPU's; its
+     bound and one launch's own device time beside it, and the profiled
+     frame's NMS stage device ms), and time kernel, plain version
      and, where one exists, the PyTorch library call computing the same
      function: by CUDA events around back-to-back calls (host dispatch
      included), and for the kernel and the library call also device-only
@@ -202,7 +205,7 @@ SYMBOLS = {                        # the __global__ function(s) of each kernel
     "set_attention": "set_attention_kernel",
     "encoder_epilogue": "encoder_epilogue_kernel",
     "rotated_overlap": "rotated_overlap_kernel",
-    "nms_peel": "nms_peel",        # nms_peel_pack_kernel + nms_peel_kernel
+    "nms_peel": "nms_peel_kernel",
 }
 REPLACES = {
     "segment_max": "dsvt_ai_trt_tpu/ops/segment_pallas.py:125",
@@ -827,50 +830,68 @@ def chain_boxes(n, spacing=0.9, length=4.0):
     return boxes
 
 
-def check_nms_peel(recorder, frames_to_check, top_k):
-    """Kernel nms_peel vs its plain loop, bit-equal (kept set and count),
-    on each frame's suppression mask and on a constructed chain of top_k
-    boxes, each overlapping the next (top_k / 2 rounds); there also the
-    whole NMS on the card (B4 + nms_peel) against the CPU's plain NMS.
-    Timed on the first frame and on the chain.  The work depends on the
-    data: the bound counts the mask's bytes read once, the outputs written
-    once, and rounds * 2 * K * ceil(K/32) 32-bit ANDs at the f32 vector
-    rate; no PyTorch call computes the loop (library_ms null)."""
+IOU_OPS = 5   # f32 operations a pair: add, subtract, clamp, divide, compare
+
+
+def check_nms_peel(recorder, frames_to_check, top_k, stage_ms=None):
+    """Kernel nms_peel vs its plain version, bit-equal (boxes out and kept
+    count), on each frame's recorded (overlap, boxes, count, threshold) and
+    on a constructed chain of top_k boxes, each overlapping the next
+    (top_k / 2 rounds), with B4's overlap; there also the whole NMS on the
+    card (B4 + nms_peel) against the CPU's plain NMS.  Timed on the first
+    frame and on the chain, beside one launch's own device time (the floor
+    of any one-launch design).  The work depends on the data: the bound
+    counts the overlap's upper triangle in the rows below the count, read
+    once, the boxes read and written once, the count and kept count, and
+    IOU_OPS operations a pair read plus rounds * 2 * K * ceil(K/32) 32-bit
+    ANDs, at the f32 vector rate; no PyTorch call computes it (library_ms
+    null).  ``stage_ms``: the profiled frame's NMS stage device ms
+    (B4 + nms_peel), reported beside."""
     import torch
     from dsvt_ai_trt_tpu_torch.ops import nms as nms_ops
     from dsvt_ai_trt_tpu_torch.ops import nms_peel as npl
 
-    def held(sup, count, what):
-        got = npl.nms_peel_cuda(sup, count)
-        ref = npl.nms_peel_plain(sup, count)
-        check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
-              f"nms_peel differs from its plain loop on {what}: "
+    def held(args, what):
+        got = npl.nms_peel_cuda(*args)
+        ref = npl.nms_peel_plain(*args)
+        check(torch.equal(got[0].view(torch.int32), ref[0].view(torch.int32))
+              and torch.equal(got[1], ref[1]),
+              f"nms_peel differs from its plain version on {what}: "
               f"{int(got[1])} vs {int(ref[1])} kept")
         return int(got[1])
 
-    def timed(sup, count):
-        K = sup.shape[0]
-        rounds = peel_rounds(sup, count)
-        ops = rounds * 2 * K * ((K + 31) // 32)
-        nbytes = K * K + 8 + K + 8
+    def timed(args):
+        _overlap, boxes, count, _thr = args
+        K = boxes.shape[0]
+        rounds = peel_rounds(npl.suppression_plain(*args), count)
+        rows = max(0, min(int(count), K))
+        pairs = rows * (K - 1) - rows * (rows - 1) // 2   # i < rows, i < j
+        ops = IOU_OPS * pairs + rounds * 2 * K * ((K + 31) // 32)
+        nbytes = 4 * pairs + 2 * K * 9 * 4 + 8 + 8
         b, by = bound_ms(nbytes, ops, F32_FLOPS)
-        t_d, how = device_ms(lambda: npl.nms_peel_cuda(sup, count),
+        t_d, how = device_ms(lambda: npl.nms_peel_cuda(*args),
                              SYMBOLS["nms_peel"])
-        return {"K": K, "rounds": rounds, "bytes": nbytes, "ops": ops,
-                "ms": cuda_ms(lambda: npl.nms_peel_cuda(sup, count)),
+        one = torch.empty(1, device=boxes.device)
+        t_floor, _ = device_ms(one.zero_)   # one launch's own device time
+        return {"K": K, "count": rows, "rounds": rounds, "pairs": pairs,
+                "bytes": nbytes, "ops": ops,
+                "ms": cuda_ms(lambda: npl.nms_peel_cuda(*args)),
                 "device_ms": t_d, "device_ms_by": how,
-                "plain_ms": cuda_ms(lambda: npl.nms_peel_plain(sup, count),
+                "one_launch_floor_device_ms": t_floor,
+                "plain_ms": cuda_ms(lambda: npl.nms_peel_plain(*args),
                                     reps=5, warmup=1),
                 "library_ms": None, "bound_ms": b, "bound_by": by}
 
-    res = {"max_abs_err": 0.0, "per_frame": {}}
+    res = {"max_abs_err": 0.0, "per_frame": {},
+           "nms_stage_device_busy_ms": stage_ms}
     for frame in frames_to_check:
         args, _kw = first_call(recorder, "nms_peel", frame)
-        sup, count = args[:2]
-        res["per_frame"][frame] = {"kept": held(sup, count, frame),
-                                   "rounds": peel_rounds(sup, count)}
+        args = args[:4]
+        res["per_frame"][frame] = {
+            "kept": held(args, frame),
+            "rounds": peel_rounds(npl.suppression_plain(*args), args[2])}
         if frame == frames_to_check[0]:
-            res.update(timed(sup, count))
+            res.update(timed(args))
     boxes = torch.from_numpy(chain_boxes(top_k))
     card, count = boxes.cuda(), torch.tensor(top_k, device="cuda")
     got = nms_ops.nms(card, count, 0.01, use_kernels=True)
@@ -879,14 +900,9 @@ def check_nms_peel(recorder, frames_to_check, top_k):
           and torch.equal(got[0].cpu(), ref[0]),
           f"nms on the chain: {int(got[1])} kept on the card, "
           f"{int(ref[1])} on the CPU, {(top_k + 1) // 2} expected")
-    overlap = nms_ops.pairwise_overlap(card)
-    sa = card[:, 3] * card[:, 4]
-    iou = overlap / torch.clamp(sa[:, None] + sa[None, :] - overlap,
-                                min=nms_ops.THRESHOLD)
-    idx = torch.arange(top_k, device="cuda")
-    sup = (iou >= 0.01) & (idx[:, None] < idx[None, :])
-    held(sup, count, "the chain")
-    res["chain"] = timed(sup, count)
+    args = (nms_ops.pairwise_overlap(card), card, count, 0.01)
+    held(args, "the chain")
+    res["chain"] = timed(args)
     return res
 
 
@@ -2084,14 +2100,15 @@ def _main(torch) -> int:
                                              ["dense_seed0", "sparse_seed1"]),
         "encoder_epilogue": check_encoder_epilogue(recorder, "dense_seed0"),
         "rotated_overlap": check_rotated_overlap(recorder, list(frames)),
-        "nms_peel": check_nms_peel(recorder, list(frames), cfg.top_k),
+        "nms_peel": check_nms_peel(
+            recorder, list(frames), cfg.top_k,
+            prof["stages"].get("nms", {}).get("device_busy_ms")),
     }
     for name, res in results.items():
         # the same kernels' device ms in the profiled frame, per launch
-        # there (B3: its two calls together, nms_peel: its two kernels, as
-        # in "ms" and "device_ms")
+        # there (B3: its two calls together, as in "ms" and "device_ms")
         seen = prof["kernels"][name]
-        in_frame = (seen["ms"] if name in ("segment_max", "nms_peel")
+        in_frame = (seen["ms"] if name == "segment_max"
                     else seen["ms"] / max(seen["calls"], 1))
         log({"phase": "kernel", "name": name, "kernel_ms": res["ms"],
              "frame_profile_ms": in_frame,

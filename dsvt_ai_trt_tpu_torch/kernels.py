@@ -58,7 +58,7 @@ SPECS = {
     "rotated_overlap": ("rotated_overlap.cu", "dsvt_rotated_overlap",
                         [_P, _I, _P, _I, _P, _P]),
     "nms_peel": ("nms_peel.cu", "dsvt_nms_peel",
-                 [_P, _I, _P, _P, _P, _P, _P]),
+                 [_P, _P, _I, _P, _F, _P, _P, _P]),
 }
 
 ARCH = "sm_90a"

@@ -14,7 +14,8 @@ the strict upper triangle: it builds the corners with ``box_corners``'
 rounding (``cosf``/``sinf``, as ``torch.cos``/``torch.sin`` on the card)
 and rounds every product, difference, quotient and sum of the clip on its
 own, with no fused multiply-adds, as the plain version's PyTorch ops do;
-nms_peel bit-exact (kept set and count: boolean algebra).  The engine's
+nms_peel bit-exact (boxes out and kept count: its IoU rounds as PyTorch's
+ops do, and the rest is boolean algebra and copies).  The engine's
 replays bit-exact against ``Engine.eager`` at a tiny configuration: the
 same kernels on the same inputs; the scan graph's frames bit-exact against
 the per-frame engine's replays; a segmented capture
@@ -301,37 +302,91 @@ def test_rotated_overlap_slow_path(dev):
         assert (int(slow) > 50) if defines else (int(slow) == 0)
 
 
-def _peel_equal(sup, count):
+def _peel_equal(overlap, boxes, count, thr=0.01):
+    """Kernel nms_peel against its plain version on the card: boxes out
+    and kept count bit-equal, one launch.  Returns the kept count."""
     before = kernels.counts()["nms_peel"]
-    kept, n = npl.nms_peel(sup, count)
+    out, n = npl.nms_peel(overlap, boxes, count, thr)
     assert kernels.counts()["nms_peel"] == before + 1
-    ref_kept, ref_n = npl.nms_peel_plain(sup, count)
-    assert torch.equal(kept, ref_kept) and torch.equal(n, ref_n)
+    ref_out, ref_n = npl.nms_peel_plain(overlap, boxes, count, thr)
+    assert torch.equal(out.view(torch.int32), ref_out.view(torch.int32))
+    assert n.dtype == torch.int64 and torch.equal(n, ref_n)
     return int(n)
+
+
+def _pair_overlaps(gen, boxes, density, thr=0.01):
+    """An overlap matrix for score-sorted boxes: a share `density` of the
+    pairs gets an IoU within 1% of the threshold (about half of them
+    suppress; the kernel must round as PyTorch does), the rest an IoU
+    below half of it; the lower triangle holds noise the kernel must not
+    read."""
+    K = boxes.shape[0]
+    sa = boxes[:, 3] * boxes[:, 4]
+    pair = sa[:, None] + sa[None, :]
+    u = torch.rand(K, K, device=boxes.device, generator=gen)
+    near = torch.rand(K, K, device=boxes.device, generator=gen) < density
+    iou = torch.where(near, thr * (0.99 + 0.02 * u), thr * 0.5 * u)
+    overlap = iou * pair / (1 + iou)
+    noise = torch.rand(K, K, device=boxes.device, generator=gen) * pair
+    return torch.where(torch.ones_like(near).triu(1), overlap, noise)
 
 
 @pytest.mark.parametrize("K", [1, 37, 500, 1024])
 @pytest.mark.parametrize("density", [0.01, 0.2])
 def test_nms_peel_random(dev, K, density):
     gen = torch.Generator(device=dev).manual_seed(K)
+    boxes = torch.from_numpy(_boxes(np.random.default_rng(K), K)).to(dev)
+    overlap = _pair_overlaps(gen, boxes, density)
     for count in (K, K // 2, 0):
-        sup = (torch.rand(K, K, device=dev, generator=gen) < density).triu(1)
-        sup &= (torch.arange(K, device=dev) < count)[:, None]
-        _peel_equal(sup, torch.tensor(count, device=dev))
+        n = _peel_equal(overlap, boxes, torch.tensor(count, device=dev))
+        assert n <= count and (n > 0) == (count > 0)
+
+
+@pytest.mark.parametrize("thr", [0.01, 0.0])
+def test_nms_peel_at_the_threshold(dev, thr):
+    """IoUs a few ulps either side of the threshold, where the kernel's
+    quick test cannot decide and it divides as PyTorch does; at a
+    threshold of 0 (outside the quick test's range) every pair divides."""
+    K = 300
+    boxes = torch.zeros(K, 9, device=dev)
+    boxes[:, 0] = torch.arange(K, device=dev)
+    boxes[:, 3] = boxes[:, 4] = 1.0
+    t = torch.tensor(max(thr, 1e-3), device=dev)
+    ov = 2 * t / (1 + t)                  # IoU t at unit areas
+    steps = torch.randint(-12, 13, (K, K), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(3))
+    bits = ov.view(torch.int32) + steps.int()
+    overlap = bits.view(torch.float32).triu(1)
+    for count in (K, 123):
+        _peel_equal(overlap, boxes, torch.tensor(count, device=dev), thr)
 
 
 @pytest.mark.parametrize("K", [500, 1024])
 def test_nms_peel_deep_chain(dev, K):
     """Each box suppresses the next: K / 2 rounds, every other box kept."""
-    sup = torch.zeros(K, K, dtype=torch.bool, device=dev)
+    boxes = torch.zeros(K, 9, device=dev)
+    boxes[:, 0] = torch.arange(K, device=dev)
+    boxes[:, 3] = boxes[:, 4] = 1.0
+    overlap = torch.zeros(K, K, device=dev)
     i = torch.arange(K - 1, device=dev)
-    sup[i, i + 1] = True
-    assert _peel_equal(sup, K) == K // 2
+    overlap[i, i + 1] = 0.5
+    assert _peel_equal(overlap, boxes, K) == K // 2
+
+
+def test_nms_peel_on_rotated_overlap(dev):
+    """On kernel B4's overlap of 500 decoded-like boxes (clusters of near
+    neighbours, identical, nested and edge-sharing pairs)."""
+    boxes = torch.from_numpy(_boxes(np.random.default_rng(13), 500)).to(dev)
+    overlap = nk.pairwise_overlap(boxes)
+    for count in (500, 321):
+        n = _peel_equal(overlap, boxes, torch.tensor(count, device=dev))
+        assert 0 < n < count
 
 
 def test_nms_peel_refuses_more_than_1024_boxes(dev):
     with pytest.raises(ValueError, match="K <= 1024"):
-        npl.nms_peel(torch.zeros(1025, 1025, dtype=torch.bool, device=dev), 5)
+        npl.nms_peel(torch.zeros(1025, 1025, device=dev),
+                     torch.zeros(1025, 9, device=dev), 5, 0.01)
 
 
 def _tiny_config(precision):

@@ -18,9 +18,10 @@ tiny configuration.
 * the BEV scatter with its dump row equals the JAX package's drop-mode
   ``map_to_bev`` exactly, with invalid pillars present (their coordinates
   collide with valid cells, as the voxelizer leaves them);
-* the NMS rounds (the plain loop behind kernel nms_peel) keep exactly the
-  JAX ``nms``'s boxes and count on a deep suppression chain, where each box
-  overlaps the next and the greedy rounds number half the boxes;
+* the NMS rounds (kernel nms_peel's plain version) keep exactly the JAX
+  ``nms``'s boxes and count on a deep suppression chain, where each box
+  overlaps the next and the greedy rounds number half the boxes, and put
+  the kept boxes first;
 * ``Engine(device="cpu")`` runs the eager forward: the tiny fp32 golden,
   no graph, no launch; the launch accounting of a capture and its replays.
 """
@@ -155,25 +156,36 @@ def test_nms_deep_chain_matches_jax(count):
 
 def test_nms_peel_plain_rounds_on_a_chain():
     """Every other box of a chain is kept: the first promotes, suppresses
-    the second, and so on, one pair a round."""
+    the second, and so on, one pair a round.  The kept boxes come first in
+    index order, then zero rows; the lower triangle is never read."""
     K = 300
-    sup = torch.zeros(K, K, dtype=torch.bool)
-    sup[torch.arange(K - 1), torch.arange(1, K)] = True
-    kept, count = nms_peel.nms_peel(sup, torch.tensor(K))
-    assert torch.equal(kept, torch.arange(K) % 2 == 0)
+    boxes = torch.zeros(K, 9)
+    boxes[:, 0] = torch.arange(K)             # the row, to read the order
+    boxes[:, 3] = boxes[:, 4] = 1.0           # unit areas
+    overlap = torch.zeros(K, K)
+    i = torch.arange(K - 1)
+    overlap[i, i + 1] = overlap[i + 1, i] = 0.5   # IoU 1/3 with the next
+    out, count = nms_peel.nms_peel(overlap, boxes, torch.tensor(K), 0.01)
     assert count.dtype == torch.int64 and int(count) == K // 2
-    kept, count = nms_peel.nms_peel(sup, 7)   # rows past the count: dropped
-    assert kept.nonzero().flatten().tolist() == [0, 2, 4, 6]
+    assert torch.equal(out[:K // 2], boxes[::2])
+    assert not out[K // 2:].any()
+    out, count = nms_peel.nms_peel(overlap, boxes, 7, 0.01)  # rows past the
+    assert out[:int(count), 0].tolist() == [0, 2, 4, 6]      # count: dropped
+    assert not out[int(count):].any()
 
 
 def test_nms_peel_cuda_checks_arguments_first():
     before = kernels.counts()
-    with pytest.raises(ValueError, match="bool"):
-        nms_peel.nms_peel_cuda(torch.zeros(4, 4), 4)
+    boxes, overlap = torch.zeros(4, 9), torch.zeros(4, 4)
+    with pytest.raises(ValueError, match="f32 boxes"):
+        nms_peel.nms_peel_cuda(overlap, boxes.double(), 4, 0.01)
+    with pytest.raises(ValueError, match="f32 overlap"):
+        nms_peel.nms_peel_cuda(overlap.bool(), boxes, 4, 0.01)
     with pytest.raises(ValueError, match="K <= 1024"):
-        nms_peel.nms_peel_cuda(torch.zeros(1025, 1025, dtype=torch.bool), 4)
+        nms_peel.nms_peel_cuda(torch.zeros(1025, 1025), torch.zeros(1025, 9),
+                               4, 0.01)
     with pytest.raises(ValueError, match="CUDA"):
-        nms_peel.nms_peel_cuda(torch.zeros(4, 4, dtype=torch.bool), 4)
+        nms_peel.nms_peel_cuda(overlap, boxes, 4, 0.01)
     assert kernels.counts() == before
 
 

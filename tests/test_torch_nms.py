@@ -5,7 +5,9 @@ The same score-sorted boxes go through ``nms_pallas.pairwise_overlap_pallas
 version of B4): equal on the strict upper triangle at atol 1e-4 (the
 kernel's contract; both run the same clip in f32).  The port's clip also
 equals the JAX clip on every entry, and the port's NMS keeps exactly the
-JAX NMS's boxes and count.
+JAX NMS's boxes and count: through kernel nms_peel's plain version (the
+IoU, the rounds and the compaction after the overlap) bit for bit, on
+seeded boxes and on a 300-box suppression chain, at counts 0, 7 and K.
 """
 
 import jax
@@ -83,6 +85,42 @@ def test_nms_kept_set_matches_jax():
                                    use_kernels=False)
     assert int(plain_count) == int(got_count)
     assert torch.equal(plain_boxes, got_boxes)
+
+
+def _chain(n, spacing=0.9, length=4.0):
+    """Score-sorted boxes in a row along x, each overlapping the next by
+    (1 - spacing) of its length and no other: n / 2 peeling rounds."""
+    boxes = np.zeros((n, 9), np.float32)
+    boxes[:, 0] = np.arange(n) * spacing * length
+    boxes[:, 3], boxes[:, 4], boxes[:, 5] = 2.0, length, 1.5
+    boxes[:, 8] = np.linspace(0.99, 0.3, n)
+    return boxes
+
+
+@pytest.mark.parametrize("count", ["0", "7", "K"])
+@pytest.mark.parametrize("which", ["seeded", "chain"])
+def test_nms_peel_plain_matches_jax(which, count):
+    """``ops/nms.py:nms`` on the CPU (the plain overlap, then nms_peel's
+    plain version) against the JAX ``nms`` (``use_pallas=False``): boxes
+    bit-equal, the same count.  Rows past the count keep their values: they
+    must neither be kept nor suppress."""
+    boxes = (_random_boxes(np.random.default_rng(5), 64) if which == "seeded"
+             else _chain(300))
+    K = len(boxes)
+    n = {"0": 0, "7": 7, "K": K}[count]
+    ref_boxes, ref_count = jax_nms(jnp.asarray(boxes), jnp.int32(n), 0.01,
+                                   use_pallas=False)
+    got_boxes, got_count = nms(torch.from_numpy(boxes), torch.tensor(n),
+                               0.01, use_kernels=False)
+    assert got_count.dtype == torch.int64
+    assert int(got_count) == int(ref_count)
+    if which == "chain":
+        assert int(got_count) == (n + 1) // 2
+    elif n == K:
+        assert 0 < int(got_count) < n           # something was suppressed
+    assert (int(got_count) == 0) == (n == 0)
+    np.testing.assert_array_equal(got_boxes.numpy().view(np.uint32),
+                                  np.asarray(ref_boxes).view(np.uint32))
 
 
 @pytest.mark.parametrize("boxes,match", [
