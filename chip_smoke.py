@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. build the five CUDA kernels from ``dsvt_ai_trt_tpu_torch/csrc`` (one
+  1. build the six CUDA kernels (the five of the main path and the
+     tracer's stage mark) from ``dsvt_ai_trt_tpu_torch/csrc`` (one
      ``nvcc`` each, all at once) and print the build seconds;
   2. print the card's name and power limit;
   3. run ``Engine`` at ``DEFAULT_CONFIG`` width with ``precision="bf16"`` and
@@ -19,8 +20,9 @@ Phases (any failure exits non-zero):
      nms_peel; a replay counts what its capture recorded);
   5. run the same frames through the eager forward (``Engine.eager``):
      its outputs equal the replays' bit for bit, and it records the
-     kernels' inputs (a replay calls no Python); profile one eager frame
-     by stage; hold each kernel against its plain PyTorch version on those
+     kernels' inputs (a replay calls no Python); profile one frame's
+     graph replay by stage, through a second engine warmed with the
+     tracer on (its stage marks split the replay); hold each kernel against its plain PyTorch version on those
      inputs (B3 and B4 on all three frames, with B4's NMS kept
      set and its count of 64-slot reruns; nms_peel, the IoU, the rounds
      and the keep-first compaction in one launch, bit-equal in boxes and
@@ -172,9 +174,10 @@ this script imports nothing outside the port.  Its anchor of the fp32
 path is the card test ``python -m pytest tests/test_torch_oracle.py
 --noconftest -m slow``.
 
-The profile of phase 5 is ``runtime/trace.capture``'s: per stage host ms,
-span and busy ms on the device timeline, per kernel device ms, and the
-device's idle share of the frame's span.
+The profile of phase 5 is ``runtime/trace.capture``'s: per stage (between
+the stage marks) span and busy ms on the device timeline, per kernel
+device ms, the device's idle share of the frame's span, and the tracer's
+clock calibration.
 
 Needs one CUDA card; exits non-zero without one, and without the package.
 """
@@ -197,6 +200,8 @@ BF16_FLOPS = 989e12                # dense tensor-core bf16
 F32_FLOPS = 67e12                  # f32 outside the tensor cores
 PER_FRAME = {"segment_max": 2, "set_attention": 8, "encoder_epilogue": 8,
              "rotated_overlap": 1, "nms_peel": 1}
+# what a frame launches with the tracer off: the graph holds no stage mark
+LAUNCHES = {**PER_FRAME, "stage_mark": 0}
 NMS_KERNELS = ("rotated_overlap", "nms_peel")   # none without NMS
 SCAN_BATCH = 10                    # frames in one scan graph (bench.BATCH)
 TRAIN_STEPS = 6                    # graph replays held against eager steps
@@ -456,19 +461,21 @@ def run_main_path(engine, frames):
     return records, counts, recorder
 
 
-def profile_frame(fn, cfg, pts, n, iters=2):
-    """Warm calls of fn (the eager forward: stage labels do not fire in a
-    graph replay) under torch.profiler, by ``runtime/trace.capture``, per
-    frame: the host ms of the call (``wall_ms``), the frame's span on the
+def profile_frame(engine, cfg, pts, n, iters=2):
+    """Warm replays of ``engine``, warmed with the tracer on (its graph's
+    stage marks split each replay by stage), under torch.profiler, by
+    ``runtime/trace.capture``, per frame: the host ms of the call
+    (``wall_ms``), the frame's span on the
     device timeline, device busy ms (kernels, copies and memsets), the
     device's idle share of the span, the host ms spent waiting for the card
     and in launch calls, and per forward stage (model.detector.STAGES
-    labels) its host ms, the span and busy ms on the device of the work it
-    launched and its four costliest kernels, its GFLOP and MFU; plus each
+    labels) its host ms (0: a replay runs no Python), the span and busy ms
+    on the device of the work between its marks and its four costliest
+    kernels, its GFLOP (counted on ``engine.eager``) and MFU; plus each
     hand-written kernel's device ms and the top device kernels."""
     from dsvt_ai_trt_tpu_torch.runtime.profiler import device_peak_flops
     from dsvt_ai_trt_tpu_torch.runtime.trace import capture
-    prof = capture(fn, (pts, n), iters=iters)
+    prof = capture(engine, (pts, n), iters=iters)
     table = prof.stage_table(device_peak_flops(cfg.precision))
     stages = {name: {"host_ms": v["host_ms"], "device_span_ms": v["span_ms"],
                      "device_busy_ms": v["busy_ms"],
@@ -949,7 +956,7 @@ def check_graph(engine, frames):
     for tag, (eng, fr) in engines.items():
         eng.warmup()
         want = {k: (0 if k in NMS_KERNELS and not eng.with_nms else v)
-                for k, v in PER_FRAME.items()}
+                for k, v in LAUNCHES.items()}
         check(eng.graph_launches == want, f"graph {tag}: the capture holds "
               f"{eng.graph_launches}, expected {want}")
         row = {"capture_seconds": eng.capture_seconds,
@@ -989,7 +996,7 @@ def check_graph(engine, frames):
     points = torch.stack([dev[g][0] for g in group])
     nums = torch.stack([dev[g][1] for g in group])
     scan = Engine(engine.params, engine.cfg, batch=SCAN_BATCH).warmup()
-    want = {k: SCAN_BATCH * v for k, v in PER_FRAME.items()}
+    want = {k: SCAN_BATCH * v for k, v in LAUNCHES.items()}
     check(scan.graph_launches == want, f"scan graph: the capture holds "
           f"{scan.graph_launches}, expected {want}")
     kernels.reset_counts()
@@ -1195,7 +1202,7 @@ def check_runtime(engine, frames, tmp):
                    "--pipeline-depth", "2")
     counts = kernels.counts()
     warm = Engine.WARM_RUNS + 1      # eager warm frames, the first replay
-    want = {k: v * (len(frames) + warm) for k, v in PER_FRAME.items()}
+    want = {k: v * (len(frames) + warm) for k, v in LAUNCHES.items()}
     check(counts == want, f"cli infer launch counts {counts} != {want} "
           f"({len(frames)} frames and {warm} warm-up frames)")
     out = {"build_seconds": build_s, "launches": counts, "frames": {}}
@@ -1246,7 +1253,7 @@ def check_waymo(tmp):
     dets = engine(pts, n)
     torch.cuda.synchronize()
     counts = kernels.counts()
-    check(counts == PER_FRAME, f"waymo launch counts {counts} != {PER_FRAME}")
+    check(counts == LAUNCHES, f"waymo launch counts {counts} != {LAUNCHES}")
     recorder = Recorder()            # the kernels' inputs, from eager
     with recorder:
         recorder.frame = "waymo"
@@ -1393,7 +1400,7 @@ def check_training(frames, tmp):
         got = {name: trained(pts, n) for name, (pts, n) in frames.items()}
         torch.cuda.synchronize()
         counts = kernels.counts()
-        want_counts = {k: v * len(frames) for k, v in PER_FRAME.items()}
+        want_counts = {k: v * len(frames) for k, v in LAUNCHES.items()}
         check(counts == want_counts, f"training: trained-weight launch "
               f"counts {counts} != {want_counts}")
         out["engine"] = {"launches": counts, "frames": {}}
@@ -1686,7 +1693,7 @@ def check_multi(engine, frames):
 
     def want(frames_per_rank, kernels_on=tuple(PER_FRAME)):
         return {k: (v * frames_per_rank if k in kernels_on else 0)
-                for k, v in PER_FRAME.items()}
+                for k, v in LAUNCHES.items()}
 
     # per rank: 2/8/8/1/1 a frame, eager and graph; sp at fp32 takes B3,
     # B4 and nms_peel only (B1 and B2 are the bf16/mixed path's); the train
@@ -1903,7 +1910,7 @@ def check_mixed(frames):
     cfg = dataclasses.replace(DEFAULT_CONFIG, precision="mixed")
     engine = Engine(weights.random_params(cfg, 0), cfg)
     records, counts, recorder = run_main_path(engine, frames)
-    want = {k: v * len(frames) for k, v in PER_FRAME.items()}
+    want = {k: v * len(frames) for k, v in LAUNCHES.items()}
     check(counts == want, f"mixed launch counts {counts} != {want}")
     for rec in records.values():
         check(rec["finite"] and rec["shape"] == [cfg.top_k, 9],
@@ -2085,14 +2092,19 @@ def _main(torch) -> int:
               f"bad boxes on {rec['frame']}: {rec}")
     check(records["sparse_seed1"]["occupancy"][2] < cfg.max_sets,
           "the sparse frame must leave sets unused")
-    want = {k: v * len(frames) for k, v in PER_FRAME.items()}
+    want = {k: v * len(frames) for k, v in LAUNCHES.items()}
     log({"phase": "launches", "counts": counts, "expected": want})
     check(counts == want, f"launch counts {counts} != {want}")
 
-    prof = profile_frame(engine.eager, cfg,
-                         *on_card(frames)["dense_seed0"])
-    log({"phase": "profile", "frame": "dense_seed0", "forward": "eager",
-         **prof})
+    from dsvt_ai_trt_tpu_torch.runtime import profiler
+    profiler.enable_spans()       # a second engine, its graph with marks
+    traced = Engine(engine.params, cfg).warmup()
+    prof = profile_frame(traced, cfg, *on_card(frames)["dense_seed0"])
+    prof["clock"] = profiler.calibration()
+    profiler.disable_spans()
+    del traced
+    log({"phase": "profile", "frame": "dense_seed0",
+         "forward": "graph replay", **prof})
 
     results = {
         "segment_max": check_segment_max(recorder, list(frames)),

@@ -80,20 +80,36 @@ def cmd_build(args):
     print(f"engine written to {args.engine} ({len(blob)} bytes)")
 
 
+def _spans_on(args):
+    """``--spans PATH``: the tracer on before any engine or step warms up."""
+    if args.spans:
+        from .runtime import profiler
+        profiler.enable_spans()
+
+
+def _write_spans(args):
+    if args.spans:
+        from .runtime import profiler
+        print(f"spans -> {profiler.write_spans(args.spans)}")
+        profiler.disable_spans()
+
+
 def cmd_infer(args):
     from .runtime.infer import Engine, run_frames, run_frames_scan
+    _spans_on(args)
     cfg = _load_cfg(args)
     params = _load_params(args, cfg)
     paths = _paths(args)
     if args.scan_batch:
         run_frames_scan(params, cfg, paths, args.out, batch=args.scan_batch,
                         host_nms=args.host_nms, device=args.device)
-        return
-    engine = Engine(params, cfg, device=args.device,
-                    with_nms=not args.host_nms,
-                    engine_path=args.engine).warmup()
-    run_frames(engine, paths, args.out, host_nms=args.host_nms,
-               pipeline_depth=args.pipeline_depth)
+    else:
+        engine = Engine(params, cfg, device=args.device,
+                        with_nms=not args.host_nms,
+                        engine_path=args.engine).warmup()
+        run_frames(engine, paths, args.out, host_nms=args.host_nms,
+                   pipeline_depth=args.pipeline_depth)
+    _write_spans(args)
 
 
 def cmd_bench(args):
@@ -204,6 +220,7 @@ def cmd_train(args):
     from .ops.common import resolve_device
     from .parallel.training import (CompiledTrainStep, load_train_state,
                                     save_train_state)
+    _spans_on(args)
     cfg = _load_cfg(args)
     device = resolve_device(args.device)
     params = weights.from_jax_params(_load_params(args, cfg), device)
@@ -236,6 +253,7 @@ def cmd_train(args):
     if args.export_wts:
         weights.save_wts(weights.unfold_params(params, cfg), args.export_wts)
         print(f"trained weights -> {args.export_wts}")
+    _write_spans(args)
     print(json.dumps({"steps": args.steps, "loss_first": first,
                       "loss_last": last}))
 
@@ -273,6 +291,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--scan-batch", type=int, default=0,
                    help="throughput mode: N frames per group, one graph "
                         "replay a group (0 = per-frame stream)")
+    p.add_argument("--spans", default=None, metavar="PATH",
+                   help="trace the run's host and device spans and write "
+                        "them to PATH as a Chrome trace")
     p.set_defaults(fn=cmd_infer)
 
     p = sub.add_parser("bench", help="steady-state ms/frame")
@@ -299,6 +320,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ckpt-every", type=int, default=10)
     p.add_argument("--resume", default=None)
     p.add_argument("--export-wts", default=None)
+    p.add_argument("--spans", default=None, metavar="PATH",
+                   help="trace the steps' host and device spans and write "
+                        "them to PATH as a Chrome trace")
     p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("eval", help="order-insensitive box comparison of two "

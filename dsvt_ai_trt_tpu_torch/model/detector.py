@@ -11,7 +11,10 @@ card; tests pass "cpu").  The parameters must already live there
 ``runtime.profiler.stage_scope`` (a ``torch.profiler.record_function``
 label, STAGES), so a profiler trace splits a frame's time by stage and
 ``runtime.profiler.count_flops`` counts FLOPs by stage; outside a profiler
-the labels cost a few microseconds per frame.
+the labels cost a few microseconds per frame.  With the port's tracer on
+(``runtime.profiler.enable_spans``), each stage's entry is also a device
+stage mark, and the frame's occupancy and count of boxes before NMS go to
+its counters.
 
 ``forward_batch`` is the per-frame stacked form that the JAX package's
 vmap computes (the form data parallelism runs on each dp rank,
@@ -48,6 +51,7 @@ from ..ops.postprocess import Detections, decode_and_filter
 from ..ops.voxelize import Pillars, voxelize
 from ..ops.windows import partition
 from ..parallel.spatial import spatial_sharding
+from ..runtime import profiler
 from ..runtime.profiler import stage_scope
 from .backbone2d import backbone2d_forward
 from .backbone3d import backbone3d_forward
@@ -109,6 +113,7 @@ def forward(params: Dict, points, num_points, cfg: DSVTConfig,
                                 lazy=True)
     with stage_scope("decode"):
         dets = decode_and_filter(head_out, cfg, head_params=params["head"])
+    profiler.counter("boxes_before_nms", dets.count)
     if with_nms:
         with stage_scope("nms"):
             boxes, count = nms_ops.nms(dets.boxes, dets.count,
@@ -117,6 +122,7 @@ def forward(params: Dict, points, num_points, cfg: DSVTConfig,
         dets = Detections(boxes=boxes, count=count)
     occupancy = torch.stack([pillars.point_count, pillars.pillar_count]
                             + [sp.set_count for sp in sparts])
+    profiler.counter("occupancy", occupancy)
     return dets._replace(occupancy=occupancy)
 
 

@@ -70,6 +70,7 @@ from .. import kernels
 from ..config import DSVTConfig
 from ..model.detector import float_stages, forward_train, partition_frame
 from ..ops.common import resolve_device
+from ..runtime import profiler
 from ..runtime.compile import capture_graph, capture_segments
 from ..weights import (keystr, named_leaves, refold, to_numpy_leaf,
                        to_torch_leaf, trainable)
@@ -288,6 +289,7 @@ def make_train_step(cfg: DSVTConfig, params, optimizer=None,
     optimizer = optimizer or default_optimizer(params)
 
     def train_step(points, num_points, targets: Targets) -> torch.Tensor:
+        profiler.mark("forward")       # TRAIN_STAGES, with the tracer on
         if dp > 1:                     # this dp rank's share of the batch
             share = len(points) // dp
             if share * dp != len(points):
@@ -300,7 +302,9 @@ def make_train_step(cfg: DSVTConfig, params, optimizer=None,
         loss = batched_loss(params, points, num_points, targets, cfg,
                             remat=remat, dir_weight=dir_weight,
                             aux_weight=aux_weight, device=device, tp=tp)
+        profiler.mark("backward")
         loss.backward()
+        profiler.mark("optimizer")
         for t in leaves:             # unused leaves: zero, as in optax
             if t.grad is None:
                 t.grad = torch.zeros_like(t)
@@ -374,7 +378,16 @@ class CompiledTrainStep:
     capture reserved: the graph's pool, which holds a whole step's
     intermediates), ``graph_launches`` (hand-written kernels a replay
     launches: none, training runs the plain paths), ``segments`` (graphs
-    a replay launches) and ``replays``."""
+    a replay launches) and ``replays``.
+
+    With the tracer on (``runtime.profiler.enable_spans``, before the
+    warm-up) the graph also holds the step's marks (``TRAIN_STAGES``: step
+    start, after ``batched_loss``, after the backward, after the update and
+    ``refold``), and each call, replayed or eager, leaves a record numbered
+    by ``calls``: host spans ``call``, ``copy_in``, ``graph_launch`` and the
+    step's marks (``runtime/profiler.py``).  The warm-up's record has the
+    spans ``kernels`` (the mark kernel), ``warm_runs`` and ``capture``: it
+    replays nothing."""
 
     WARM_RUNS = 2
 
@@ -395,12 +408,26 @@ class CompiledTrainStep:
         self.graph_launches = {}
         self.capture_seconds = self.graph_pool_bytes = self.segments = None
         self.replays = 0
+        self._marks = self._eager_marks = None   # the tracer's, when on
+        self.calls = 0             # calls the tracer recorded
 
     def __call__(self, points, num_points, targets: Targets) -> torch.Tensor:
         if self.device.type != "cuda":
-            return self.eager(points, num_points, targets)
+            if profiler.tracer() is None:
+                return self.eager(points, num_points, targets)
+            return profiler.traced_eager(
+                self, "step", lambda: self.eager(points, num_points, targets))
         if self._graph is None:
             self.warmup()
+        if profiler.tracer() is not None:
+            return self._traced_call(points, num_points, targets)
+        self._load(points, num_points, targets)
+        self._graph.replay()
+        self.replays += 1
+        kernels.replayed(self.graph_launches)
+        return self._loss.clone()
+
+    def _load(self, points, num_points, targets: Targets) -> None:
         for buf, t in zip(self._inputs, (points, num_points, *targets)):
             if tuple(t.shape) != tuple(buf.shape):
                 raise ValueError(f"CompiledTrainStep: the graph takes "
@@ -408,15 +435,34 @@ class CompiledTrainStep:
                                  f"(points, num_points, targets), got "
                                  f"{tuple(t.shape)} for {tuple(buf.shape)}")
             buf.copy_(t, non_blocking=True)
-        self._graph.replay()
-        self.replays += 1
-        kernels.replayed(self.graph_launches)
-        return self._loss.clone()
+
+    def _traced_call(self, points, num_points, targets: Targets):
+        """``__call__`` with its host spans, and the step's marks copied
+        toward the host after the replay, in stream order."""
+        self.calls += 1
+        with profiler.record("step", "CompiledTrainStep", self.calls,
+                             "replay") as rec:
+            with profiler.span("copy_in"):
+                self._load(points, num_points, targets)
+            with profiler.span("graph_launch"):
+                self._graph.replay()
+            self.replays += 1
+            kernels.replayed(self.graph_launches)
+            loss = self._loss.clone()
+            profiler.take(rec, self._marks)
+        return loss
 
     def warmup(self) -> "CompiledTrainStep":
         """Capture the step (class docstring); on the CPU nothing."""
         if self.device.type != "cuda" or self._graph is not None:
             return self
+        with profiler.record("warmup", "CompiledTrainStep", 0, "host"):
+            with profiler.span("kernels"):
+                self._marks = profiler.new_marks(self.device)
+            self._capture()
+        return self
+
+    def _capture(self) -> None:
         t0 = time.perf_counter()
         cfg, dev, B = self.cfg, self.device, self.batch
         H, W = cfg.grid_size[1], cfg.grid_size[0]
@@ -445,7 +491,8 @@ class CompiledTrainStep:
             torch.autograd.grad(loss, leaves, allow_unused=True)
 
         def step():
-            return self.eager(points, num, targets)
+            with profiler.marking(self._marks):
+                return self.eager(points, num, targets)
         if self.mesh is None:
             captured = capture_graph(step, forward_backward, dev,
                                      self.WARM_RUNS)
@@ -457,7 +504,6 @@ class CompiledTrainStep:
             = captured
         self.segments = 1 if self.mesh is None else self._graph.segments
         self.capture_seconds = time.perf_counter() - t0
-        return self
 
 
 def warmup_cosine(lr: float, warmup_steps: int, decay_steps: int

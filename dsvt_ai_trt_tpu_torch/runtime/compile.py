@@ -73,6 +73,7 @@ from ..ops.postprocess import Detections
 from ..parallel import collectives
 from ..parallel.spatial import spatial_sharding
 from ..weights import from_jax_params
+from . import profiler
 
 log = logging.getLogger("dsvt_torch.compile")
 
@@ -174,9 +175,11 @@ def capture_graph(fn, warm, device, warm_runs: int):
     tensors live in the graph's pool and each replay rewrites them, the
     kernel launches the capture recorded (``kernels.captured``), the device
     memory the capture reserved: the graph's private pool)."""
-    before = _warm(warm, device, warm_runs)
+    with profiler.span("warm_runs"):
+        before = _warm(warm, device, warm_runs)
     graph = torch.cuda.CUDAGraph()
-    with kernels.captured() as launches, torch.cuda.graph(graph):
+    with profiler.span("capture"), kernels.captured() as launches, \
+            torch.cuda.graph(graph):
         out = fn()
     return (graph, out, dict(launches),
             torch.cuda.memory_reserved(device) - before)
@@ -297,13 +300,14 @@ def capture_segments(fn, warm, device, warm_runs: int,
     recorded over every segment, the device memory the capture reserved:
     the pool and the steps' static buffers).  A failed capture raises, its
     open graph ended."""
-    before = _warm(warm, device, warm_runs)
+    with profiler.span("warm_runs"):
+        before = _warm(warm, device, warm_runs)
     program = SegmentedGraph()
     stream = torch.cuda.Stream(device)
     seg = _Segmenter(program, stream,
                      "relaxed" if across_threads else "global")
-    with kernels.captured() as launches, torch.cuda.stream(stream), \
-            collectives.intercepted(seg):
+    with profiler.span("capture"), kernels.captured() as launches, \
+            torch.cuda.stream(stream), collectives.intercepted(seg):
         seg.begin()
         try:
             out = fn()
@@ -426,6 +430,11 @@ class Engine:
     rank of the group makes the engine and calls it in step.  The graph is
     then captured in segments (``capture_segments``): ``segments`` graphs a
     replay, one collective between two of them.
+
+    With the tracer on (``runtime.profiler.enable_spans``, before the
+    warm-up) the graph also holds the stage marks, and each call, replayed
+    or eager, leaves a record of its host spans and stage marks, numbered
+    by ``calls`` (``runtime/profiler.py``).
     """
 
     WARM_RUNS = 2   # eager frames on a side stream before the capture
@@ -458,10 +467,18 @@ class Engine:
         self.capture_seconds = None
         self.graph_pool_bytes = None
         self.segments = None       # graphs a replay launches
+        self._marks = self._eager_marks = None   # the tracer's, when on
+        self.calls = 0             # calls the tracer recorded
 
     def eager(self, points, num_points) -> Detections:
         """The forward op by op, on this engine's weights, device and
-        group."""
+        group; with the tracer on, a record of kind "eager"."""
+        if profiler.tracer() is None:
+            return self._forward(points, num_points)
+        return profiler.traced_eager(
+            self, "frame", lambda: self._forward(points, num_points))
+
+    def _forward(self, points, num_points) -> Detections:
         run = forward if self.batch is None else forward_batch
         sharded = (contextlib.nullcontext() if self.spatial is None
                    else spatial_sharding(self.spatial))
@@ -474,12 +491,32 @@ class Engine:
             return self.eager(points, num_points)
         if self._graph is None:
             self.warmup()
+        if profiler.tracer() is not None:
+            return self._traced_call(points, num_points)
         self._load(points, num_points)
         self._graph.replay()
         kernels.replayed(self.graph_launches)
+        return self._copy_out()
+
+    def _copy_out(self) -> Detections:
         out = self._out
         return Detections(boxes=out.boxes.clone(), count=out.count.clone(),
                           occupancy=out.occupancy.clone())
+
+    def _traced_call(self, points, num_points) -> Detections:
+        """``__call__`` with its host spans, and the frame's marks copied
+        toward the host after the replay, in stream order."""
+        self.calls += 1
+        with profiler.record("frame", "Engine", self.calls, "replay") as rec:
+            with profiler.span("copy_in"):
+                self._load(points, num_points)
+            with profiler.span("graph_launch"):
+                self._graph.replay()
+            kernels.replayed(self.graph_launches)
+            with profiler.span("copy_out"):
+                dets = self._copy_out()
+                profiler.take(rec, self._marks)
+        return dets
 
     def _load(self, points, num_points) -> None:
         """Copy a frame into the static input buffers, in stream order."""
@@ -512,7 +549,9 @@ class Engine:
         ``capture_seconds`` (all of that, after the build),
         ``graph_pool_bytes``, the device memory the capture reserved: the
         graph's private pool, which holds every intermediate of a frame
-        (group), and ``segments``."""
+        (group), and ``segments``.  The tracer's record of it (kind "host")
+        has the spans ``kernels``, ``warm_runs``, ``capture`` and
+        ``first_replay``."""
         frames = () if self.batch is None else (self.batch,)
         if self.device.type != "cuda":
             self(np.zeros(frames + (self.cfg.max_points, 4), np.float32),
@@ -520,25 +559,34 @@ class Engine:
             return self
         if self._graph is not None:
             return self
-        kernels.build_all()
-        for name in kernels.SPECS:
-            kernels.lib(name)
-        t0 = time.perf_counter()
-        self._points = torch.zeros(frames + (self.cfg.max_points, 4),
-                                   dtype=torch.float32, device=self.device)
-        self._num = torch.zeros(frames, dtype=torch.int32, device=self.device)
-
-        def run():
-            return self.eager(self._points, self._num)
-        grouped = self.tp is not None or self.spatial is not None
-        self._graph, self._out, self.graph_launches, self.graph_pool_bytes \
-            = (capture_segments if grouped else capture_graph)(
-                run, run, self.device, self.WARM_RUNS)
-        self.segments = self._graph.segments if grouped else 1
-        self(self._points, 0).count.cpu()   # an empty frame, waited for
-        self.capture_seconds = time.perf_counter() - t0
+        with profiler.record("warmup", "Engine", 0, "host"):
+            with profiler.span("kernels"):
+                kernels.build_all()
+                for name in kernels.SPECS:
+                    kernels.lib(name)
+            self._capture()
         log.info("captured the forward in %.2f s (%d segments): %d MB in the "
                  "graph's pool, launches a replay %s", self.capture_seconds,
                  self.segments, self.graph_pool_bytes >> 20,
                  self.graph_launches)
         return self
+
+    def _capture(self) -> None:
+        frames = () if self.batch is None else (self.batch,)
+        t0 = time.perf_counter()
+        self._points = torch.zeros(frames + (self.cfg.max_points, 4),
+                                   dtype=torch.float32, device=self.device)
+        self._num = torch.zeros(frames, dtype=torch.int32, device=self.device)
+        self._marks = profiler.new_marks(self.device)
+
+        def run():
+            with profiler.marking(self._marks):
+                return self._forward(self._points, self._num)
+        grouped = self.tp is not None or self.spatial is not None
+        self._graph, self._out, self.graph_launches, self.graph_pool_bytes \
+            = (capture_segments if grouped else capture_graph)(
+                run, run, self.device, self.WARM_RUNS)
+        self.segments = self._graph.segments if grouped else 1
+        with profiler.span("first_replay"):
+            self(self._points, 0).count.cpu()   # an empty frame, waited for
+        self.capture_seconds = time.perf_counter() - t0

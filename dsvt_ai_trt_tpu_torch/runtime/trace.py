@@ -12,6 +12,13 @@ exports the Chrome trace and parses it (``parse_trace``):
     whose host ``user_annotation`` span holds the host call that launched
     it (the ``cuda_runtime`` or ``cuda_driver`` event of the same
     ``correlation`` id), else to no frame, or to stage ``other``;
+  * a CUDA graph replay's events all tie to the one graph launch, and the
+    stage labels ran only during the capture; where a frame holds the
+    tracer's stage marks (``stage_mark_kernel``, captured into the graph
+    while ``runtime.profiler.enable_spans`` was on), each of its events
+    that no label holds goes to the stage whose mark last ran before it
+    (the mark itself included; the closing "end" mark and what follows it
+    stay ``other``), so ``capture(engine, ...)`` splits the served graph;
   * a frame's window on the device timeline runs from the start of its
     first event to the end of its last.
 
@@ -47,9 +54,10 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..model.detector import STAGES
-from .profiler import FlopCount, count_flops
+from .profiler import TRAIN_STAGES, FlopCount, count_flops
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+MARK = "stage_mark_kernel"     # csrc/stage_mark.cu
 
 
 def _union_ms(intervals: List[Tuple[float, float]]) -> float:
@@ -196,12 +204,44 @@ class DeviceProfile:
         return "\n".join(lines)
 
 
-def parse_trace(path: str, n_iters: int,
-                timeline: str = "device") -> DeviceProfile:
+def _mark_names(count: int) -> Tuple[str, ...]:
+    """The stages ``count`` marks of a graph open: the detector's
+    ``STAGES`` (or without ``nms``) once a frame of the graph, else a
+    training step's ``TRAIN_STAGES`` once a step, then "end"."""
+    for stages in (STAGES, STAGES[:-1], TRAIN_STAGES):
+        frames, rest = divmod(count - 1, len(stages))
+        if frames and not rest:
+            return stages * frames + ("end",)
+    raise ValueError(f"{count} stage marks in a frame are neither the "
+                     "detector's stages nor a training step's")
+
+
+def _split_by_marks(rows: List[dict], n_iters: int) -> None:
+    """Give each frame's events that no stage label holds to the stage
+    whose mark last ran before them (module docstring)."""
+    for i in range(n_iters):
+        mine = sorted((r for r in rows if r["frame"] == i),
+                      key=lambda r: r["ts"])
+        count = sum(MARK in r["name"] for r in mine)
+        if not count:
+            continue
+        names = _mark_names(count)
+        k = -1
+        for r in mine:
+            k += MARK in r["name"]
+            if r["stage"] == "other" and k >= 0 and names[k] != "end":
+                r["stage"] = names[k]
+
+
+def parse_trace(path: str, n_iters: int, timeline: str = "device"
+                ) -> DeviceProfile:
     """Parse a Chrome trace that ``torch.profiler`` exported (.json or
-    .json.gz) of ``n_iters`` frames (see the module docstring).  Raises
-    when the trace holds another number of ``frame`` host spans, or a frame
-    with no event on the timeline."""
+    .json.gz) of ``n_iters`` frames (see the module docstring).  A frame's
+    stage marks open, in order, the detector's ``STAGES`` (without ``nms``
+    where their count says so) once a frame of the graph, or a training
+    step's ``TRAIN_STAGES``, then "end".  Raises when the trace holds
+    another number of ``frame`` host spans, a frame with no event on the
+    timeline, or a frame with a count of marks that names neither."""
     opener = gzip.open if path.endswith(".gz") else open
     with opener(path, "rt") as f:
         events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
@@ -246,6 +286,8 @@ def parse_trace(path: str, n_iters: int,
         rows.append({"name": e["name"], "ts": e["ts"], "dur": e["dur"],
                      "frame": frame,
                      "stage": spans[span][2] if span is not None else "other"})
+    if timeline == "device":
+        _split_by_marks(rows, n_iters)
     windows = []
     for i in range(n_iters):
         mine = [(r["ts"], r["ts"] + r["dur"]) for r in rows if r["frame"] == i]
@@ -267,8 +309,9 @@ def capture(fn: Callable, args: tuple, iters: int = 10,
             device="cuda") -> DeviceProfile:
     """Run ``fn(*args)`` ``iters`` times (after one warm call) under
     ``torch.profiler`` and parse the trace; then count one call's FLOPs by
-    stage (``profile.flops``) for ``stage_table``.  For a trace to keep and
-    view, use ``runtime/profiler.torch_trace``."""
+    stage (``profile.flops``) for ``stage_table``: of ``fn.eager`` where
+    ``fn`` has one (an ``Engine``, a ``CompiledTrainStep``), since the
+    counter sees nothing of a graph replay."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     on_card = torch.device(device).type == "cuda"
@@ -291,5 +334,5 @@ def capture(fn: Callable, args: tuple, iters: int = 10,
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         result = parse_trace(path, iters, "device" if on_card else "host")
-    result.flops = count_flops(fn, *args)
+    result.flops = count_flops(getattr(fn, "eager", fn), *args)
     return result

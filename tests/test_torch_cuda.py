@@ -1,5 +1,6 @@
-"""The five CUDA kernels against their plain versions, and the engine's
-CUDA graph against the eager forward, on the card.
+"""The five main-path CUDA kernels against their plain versions, the engine's
+CUDA graph against the eager forward, and the tracer's stage marks, on the
+card.
 
 Marked ``cuda``; each test skips (from a fixture) where no card is present.
 Run on a machine with a card, without the JAX-loading conftest:
@@ -424,7 +425,7 @@ def test_graph_replay_equals_eager(dev, precision, with_nms):
     fused = 4 if precision == "bf16" else 0   # 2 blocks x 2 encoders
     want = {"segment_max": 2, "set_attention": fused,
             "encoder_epilogue": fused, "rotated_overlap": int(with_nms),
-            "nms_peel": int(with_nms)}
+            "nms_peel": int(with_nms), "stage_mark": 0}
     assert engine.graph_launches == want
     kernels.reset_counts()
     replays = [engine(pts, n) for pts, n in frames]   # no wait between
@@ -449,7 +450,7 @@ def test_scan_graph_equals_per_frame_replays(dev):
     frames = [_cloud(cfg, n, seed) for n, seed in
               ((1500, 1), (600, 2), (900, 3))]
     per_frame = {"segment_max": 2, "set_attention": 4, "encoder_epilogue": 4,
-                 "rotated_overlap": 1, "nms_peel": 1}
+                 "rotated_overlap": 1, "nms_peel": 1, "stage_mark": 0}
     assert scan.graph_launches == {k: 3 * v for k, v in per_frame.items()}
     points = np.stack([p for p, _ in frames])
     kernels.reset_counts()
@@ -637,7 +638,7 @@ def test_segmented_engine_replay_equals_eager(dev, gloo1, group):
     assert engine.segments == 1 + dryrun.breaks_per_frame(cfg, mode)
     assert engine.graph_launches == {
         "segment_max": 2, "set_attention": 0, "encoder_epilogue": 0,
-        "rotated_overlap": 1, "nms_peel": 1}
+        "rotated_overlap": 1, "nms_peel": 1, "stage_mark": 0}
     for n, seed in ((1500, 1), (600, 2)):
         pts, n = _cloud(cfg, n, seed)
         got = engine(pts, n)
@@ -645,3 +646,125 @@ def test_segmented_engine_replay_equals_eager(dev, gloo1, group):
                            torch.tensor(n, device=dev))
         for a, b in zip(got, ref):
             assert torch.equal(a, b)
+
+
+def test_stage_marks_land_on_their_kernels_and_leave_the_boxes(dev, tmp_path):
+    """With the tracer on: the graph holds 10 stage marks a frame (the nine
+    ``STAGES`` and "end"); on the host clock each replay's first mark
+    follows its graph launch and the last mark precedes the host's
+    synchronise, within the calibrating bracket, which is at most 20 us;
+    after one offset (the mean of the differences) each mark lies within
+    10 us of its ``stage_mark_kernel``'s start in a profiler trace;
+    the warm-up's record holds its four spans; and the boxes equal those
+    of an engine warmed with the tracer off."""
+    import json
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from dsvt_ai_trt_tpu_torch.model.detector import STAGES
+    from dsvt_ai_trt_tpu_torch.runtime import profiler
+
+    cfg = _tiny_config("bf16")
+    plain = Engine(weights.random_params(cfg, 0), cfg).warmup()
+    frames = [_cloud(cfg, n, seed) for n, seed in ((1500, 1), (600, 2))]
+    profiler.enable_spans()
+    try:
+        traced = Engine(plain.params, cfg).warmup()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            got = [traced(pts, n) for pts, n in frames]
+            torch.cuda.synchronize()
+            t_sync = time.perf_counter_ns()
+        records = profiler.spans()
+        clock = profiler.calibration()
+    finally:
+        profiler.disable_spans()
+    assert traced.graph_launches["stage_mark"] == len(STAGES) + 1
+    assert plain.graph_launches["stage_mark"] == 0
+    for (pts, n), dets in zip(frames, got):
+        for a, b in zip(dets, plain(pts, n)):
+            assert torch.equal(a, b)
+    bracket = clock["bracket_ns"]
+    assert 0 < bracket <= 20_000
+    warm = next(r for r in records if r["what"] == "warmup")
+    assert [s["name"] for s in warm["host"]] == [
+        "warmup", "kernels", "warm_runs", "capture", "first_replay"]
+    replays = [r for r in records if r["kind"] == "replay"][-len(frames):]
+    marks = []
+    for r in replays:
+        assert [s["name"] for s in r["device"]] == list(STAGES)
+        assert all(s["parent"] == "graph_launch" for s in r["device"])
+        launch = next(s for s in r["host"] if s["name"] == "graph_launch")
+        assert r["device"][0]["start_ns"] >= launch["start_ns"] - bracket
+        marks += [s["start_ns"] for s in r["device"]]
+        marks.append(r["device"][-1]["end_ns"])
+    assert marks[-1] <= t_sync + bracket
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    starts = sorted(e["ts"] for e in json.loads(path.read_text())[
+        "traceEvents"] if e.get("cat") == "kernel"
+        and "stage_mark_kernel" in e["name"])
+    assert len(starts) == len(marks) == len(frames) * (len(STAGES) + 1)
+    ours = (np.array(marks) - marks[0]) / 1e3
+    theirs = np.array(starts) - starts[0]
+    offset = np.mean(theirs - ours)
+    assert np.abs(theirs - ours - offset).max() <= 10.0
+
+
+def test_stage_marks_after_the_tracer_is_switched_on_again(dev):
+    """An engine warmed with the tracer on keeps its marks buffer and its
+    graph's mark nodes when the tracer goes off; switched on again, the
+    tracer calibrates on the first marks that reach it, and ``spans()``
+    decodes the replay's stages on the host clock."""
+    import time
+
+    from dsvt_ai_trt_tpu_torch.model.detector import STAGES
+    from dsvt_ai_trt_tpu_torch.runtime import profiler
+
+    cfg = _tiny_config("bf16")
+    pts, n = _cloud(cfg, 1500, 1)
+    profiler.enable_spans()
+    try:
+        engine = Engine(weights.random_params(cfg, 0), cfg).warmup()
+        profiler.disable_spans()
+        profiler.enable_spans()
+        t0 = time.perf_counter_ns()
+        engine(pts, n)
+        (rec,) = profiler.spans()
+        t1 = time.perf_counter_ns()
+        bracket = profiler.calibration()["bracket_ns"]
+    finally:
+        profiler.disable_spans()
+    assert rec["kind"] == "replay"
+    assert [s["name"] for s in rec["device"]] == list(STAGES)
+    assert t0 - bracket <= rec["device"][0]["start_ns"] \
+        <= rec["device"][-1]["end_ns"] <= t1 + bracket
+
+
+def test_stage_marks_through_a_ring_that_wraps(dev, monkeypatch):
+    """With a ring of 3 host slots, 7 replays take each slot again after
+    its earlier copy's event: every record keeps its own frame's marks
+    (in order, after the one before) and occupancy."""
+    from dsvt_ai_trt_tpu_torch.model.detector import STAGES
+    from dsvt_ai_trt_tpu_torch.runtime import profiler
+
+    monkeypatch.setattr(profiler, "RING", 3)
+    cfg = _tiny_config("bf16")
+    frames = [_cloud(cfg, n, seed) for n, seed in
+              ((1500, 1), (600, 2), (900, 3), (300, 4), (1200, 5), (700, 6),
+               (1000, 7))]
+    profiler.enable_spans()
+    try:
+        engine = Engine(weights.random_params(cfg, 0), cfg).warmup()
+        got = [engine(pts, n).occupancy.tolist() for pts, n in frames]
+        records = [r for r in profiler.spans() if r["kind"] == "replay"]
+    finally:
+        profiler.disable_spans()
+    records = records[-len(frames):]
+    assert [r["counters"]["occupancy"] for r in records] == [[o] for o in got]
+    ends = 0
+    for r in records:
+        assert [s["name"] for s in r["device"]] == list(STAGES)
+        assert r["device"][0]["start_ns"] >= ends
+        ends = r["device"][-1]["end_ns"]

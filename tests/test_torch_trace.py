@@ -1,4 +1,4 @@
-"""The port's trace parser, stage timer and FLOP counts, on the CPU.
+"""The port's trace parser and FLOP counts, on the CPU.
 
 * ``parse_trace`` on a handcrafted Chrome trace of the shape
   ``torch.profiler`` exports for the card: device events of the
@@ -8,7 +8,7 @@
   per-op aggregation and the stage table (as tests/test_trace.py pins the
   JAX parser);
 * a CPU ``capture`` of the tiny forward (the host timeline) returns every
-  ``model/detector.py:STAGES`` label, and ``profile_stages`` times each;
+  ``model/detector.py:STAGES`` label;
 * ``program_flops`` of the plain B1 and B2 versions equals the kernels'
   FLOP formulas within 1%; a kernel launch adds its formula's FLOPs to the
   count of the stage it ran in;
@@ -178,16 +178,6 @@ def test_cpu_capture_returns_every_stage(tiny_model):
     assert set(prof.flops.stages) == set(STAGES)
     assert sum(prof.flops.stages.values()) == pytest.approx(prof.flops.total)
     assert prof.stage_table(1e12)["backbone2d"]["gflop"] > 0
-
-
-def test_profile_stages_times_every_stage(tiny_model):
-    cfg, params, pts, n = tiny_model
-    timer = profiler.profile_stages(params, pts, n, cfg, iters=1,
-                                    device="cpu")
-    assert list(timer.summary()) == list(STAGES)
-    assert all(s["calls"] == 1 for s in timer.summary().values())
-    assert timer.flops["backbone2d"] > 0
-    assert "backbone3d" in timer.report()
 
 
 def test_plain_b1_flops_match_the_kernel_formula():
