@@ -120,8 +120,10 @@ Phases (any failure exits non-zero):
      (the two dense frames, one a rank, through ``make_dp_engine``) equal
      to the ``Engine`` at 1e-4 (max |d| printed); mp=2 at bf16 (the three
      frames; B1 at 4 heads, B2 whole on the gathered heads) and sp=2 at
-     bf16 (B1 on a rank's 400 sets, B2 on its 5 000 pillar rows) pass
-     ``parity.py``'s gate against the unsharded bf16 boxes before NMS;
+     bf16 (B1 on a rank's 400 sets, B2 on its 5 000 pillar rows), on
+     ``parity.py``'s checkpoint (``parity_params``: its top-k waterline
+     lies below the confident boxes on every frame), pass ``parity.py``'s
+     gate against the unsharded bf16 boxes before NMS;
      sp=2 at fp32 equals the unsharded fp32 boxes at 1e-4, with the 117-row
      level split 58 / 59.  Every forward mode runs eager and through its
      compiled ``Engine`` in each rank (dp: ``make_dp_engine``'s graph;
@@ -1634,7 +1636,7 @@ def step_gate(key, new, ref_new, grad, ref_grad, lr=1e-4,
         raise SmokeFailure(str(exc)) from None
 
 
-def multi_rank(rank, world, device, frames, batch):
+def multi_rank(rank, world, device, frames, batch, parity_raw):
     """One spawned rank of the multi phase: ``dryrun.card_modes`` with B1
     and B2's first call of each mode recorded (an eager warm run of the
     mode's engine).  Returns its results and the recorded calls (CUDA
@@ -1646,8 +1648,28 @@ def multi_rank(rank, world, device, frames, batch):
     with recorder:
         res = dryrun.card_modes(rank, world, device, frames, batch,
                                 lambda mode: setattr(recorder, "frame",
-                                                     mode))
+                                                     mode), parity_raw)
     return res, recorder.calls
+
+
+def parity_params(frames):
+    """parity.py's checkpoint as one set of weights for several frames:
+    ``weights.calibrated_raw`` on each frame (fp32, seed 0, the suite's
+    count of boxes), keeping the one whose heatmap bias lies lowest.  The
+    calibrations differ in that bias alone, shifted alike for every class,
+    so on every frame at most that many cells clear the score threshold
+    and the top-k waterline lies below the confident boxes.  Returns the
+    nested NumPy dict (``prepare_params``)."""
+    from dsvt_ai_trt_tpu_torch import weights
+    from dsvt_ai_trt_tpu_torch.config import DEFAULT_CONFIG
+    cfg = DEFAULT_CONFIG
+    bias = "module.dense_head.heads_list.0.hm.1.bias"
+    raws = [weights.calibrated_raw(cfg, pts, n, seed=0,
+                                   n_boxes=min(40, cfg.top_k // 5),
+                                   device="cuda")
+            for pts, n in frames.values()]
+    return weights.prepare_params(min(raws, key=lambda r: float(r[bias][0])),
+                                  cfg)
 
 
 def nudge_(params, seed=1):
@@ -1683,8 +1705,10 @@ def check_multi(engine, frames):
         batch = synthetic_batch(np.random.default_rng(0), cfg32, 2)
     batch_np = (batch[0].cpu().numpy(), batch[1].cpu().numpy(),
                 [t.cpu().numpy() for t in batch[2]])
+    parity_raw = parity_params(frames)
     t0 = time.perf_counter()
-    spawned = dryrun.spawn(multi_rank, 2, "cuda", (frames, batch_np))
+    spawned = dryrun.spawn(multi_rank, 2, "cuda",
+                           (frames, batch_np, parity_raw))
     seconds = time.perf_counter() - t0
     ranks = [res for res, _calls in spawned]
     names = list(frames)
@@ -1769,9 +1793,10 @@ def check_multi(engine, frames):
         worst = max(worst, float(np.abs(a - b).max()) if n else 0.0)
     out["dp"]["max_abs_err_vs_engine"] = worst
 
-    # mp=2 and sp=2 at bf16: parity.py's gate against the unsharded bf16
-    # boxes before NMS; sp=2 at fp32: equal to the unsharded fp32 at 1e-4
-    params = engine.params
+    # mp=2 and sp=2 at bf16, on parity.py's checkpoint: parity.py's gate
+    # against the unsharded bf16 boxes before NMS; sp=2 at fp32: equal to
+    # the unsharded fp32 at 1e-4
+    params = weights.from_jax_params(parity_raw, "cuda")
     min_score = cfg16.score_threshold + parity.SCORE_MARGIN
     for mode in ("mp_bf16", "sp_bf16"):
         stats = []
@@ -1784,6 +1809,7 @@ def check_multi(engine, frames):
         g = parity.gate(stats)
         check(g["parity_ok"], f"multi {mode}: parity gate failed: {g}")
         out[mode]["parity"] = g
+    del params
     p32 = weights.from_jax_params(weights.random_params(cfg32, 0), "cuda")
     ref = forward(p32, *frames[names[0]], cfg32, True, "cuda")
     n = int(ref.count)

@@ -13,8 +13,12 @@ label, STAGES), so a profiler trace splits a frame's time by stage and
 ``runtime.profiler.count_flops`` counts FLOPs by stage; outside a profiler
 the labels cost a few microseconds per frame.  With the port's tracer on
 (``runtime.profiler.enable_spans``), each stage's entry is also a device
-stage mark, and the frame's occupancy and count of boxes before NMS go to
-its counters.
+stage mark, and the frame's occupancy, count of boxes before NMS and
+``bev_restrides`` go to its counters.  ``bev_restrides`` is the number of
+tensors the BEV ResNet and the head copy into their layout on a frame
+(``ops.layout.laid_out``), counted on the host as the frame is traced or
+captured: 0 on the bf16 and mixed paths of an ``Engine`` (its conv weights
+folded, ``weights.fold_convs``), 1 at fp32 (the entry to NCHW).
 
 ``forward_batch`` is the per-frame stacked form that the JAX package's
 vmap computes (the form data parallelism runs on each dp rank,
@@ -44,7 +48,7 @@ from typing import Dict, NamedTuple
 import torch
 
 from ..config import DSVTConfig
-from ..ops import nms as nms_ops
+from ..ops import layout, nms as nms_ops
 from ..ops.bev import map_to_bev
 from ..ops.common import resolve_device
 from ..ops.postprocess import Detections, decode_and_filter
@@ -106,11 +110,13 @@ def forward(params: Dict, points, num_points, cfg: DSVTConfig,
             feats = feats.to(torch.bfloat16)
         bev = map_to_bev(feats, pillars.coords, pillars.pillar_valid,
                          (cfg.grid_size[1], cfg.grid_size[0]))
+    restrides = layout.restrides()
     with stage_scope("backbone2d"):
         bev = backbone2d_forward(bev, params["backbone2d"], precision)
     with stage_scope("head"):
         head_out = head_forward(bev, params["head"], precision, cfg,
                                 lazy=True)
+    profiler.counter("bev_restrides", layout.restrides() - restrides)
     with stage_scope("decode"):
         dets = decode_and_filter(head_out, cfg, head_params=params["head"])
     profiler.counter("boxes_before_nms", dets.count)

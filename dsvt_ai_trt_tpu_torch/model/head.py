@@ -9,7 +9,11 @@ downstream; it is kept for checkpoint parity.
 top-k source; the regression branches are evaluated at the selected cells
 inside decode (ops/postprocess.py:decode_lazy_branches).  The JAX package's
 row-batched 3x3 conv (``_rowconv3``) was a TPU layout workaround; here each
-is a plain 3x3 conv with padding 1.
+is a plain 3x3 conv with padding 1, in the layout of model/backbone2d.py
+(ops/layout.py): NHWC for bf16 convs, so the NHWC 384-channel map of the
+backbone enters with no data moved, NCHW for fp32.  The full head's six
+branches read 64-channel slices of one hidden map: NCHW slices are dense,
+NHWC ones are copied (``layout.laid_out``; the lazy head has none).
 
 Inside ``parallel.spatial.spatial_sharding`` the convs run on this rank's
 rows with halos (model/backbone2d.py:conv) and every output map is then
@@ -26,7 +30,8 @@ import torch
 from ..config import DSVTConfig, HEAD_BRANCHES, head_branches
 from ..ops.common import relu
 from ..parallel import spatial
-from .backbone2d import conv, to_hwc, to_nchw
+from ..ops.layout import to_hwc, to_nchw
+from .backbone2d import BF16, conv
 
 
 def head_forward(features: torch.Tensor, params: dict,
@@ -42,25 +47,25 @@ def head_forward(features: torch.Tensor, params: dict,
                          "map's rows, for the gather)")
 
     x = to_nchw(features)
-    shared = relu(conv(x, params["shared_w"], params["shared_b"], 1,
-                             precision))
+    shared = relu(conv(x, params, "shared_w", "shared_b", 1, precision))
     if lazy:
-        hm_hidden = relu(conv(shared, params["hm"]["w0"],
-                                    params["hm"]["b0"], 1, precision))
-        hm = conv(hm_hidden, params["hm"]["w1"], params["hm"]["b1"], 1,
-                  precision)
+        hm_hidden = relu(conv(shared, params["hm"], "w0", "b0", 1,
+                              precision))
+        hm = conv(hm_hidden, params["hm"], "w1", "b1", 1, precision)
         return {"hm": spatial.gather_rows(to_hwc(hm), rows),
                 "shared": spatial.gather_rows(to_hwc(shared), rows)}
 
     # the six hidden convs as one 64 -> 6*64 conv, then each branch's final
     # conv on its own 64-channel slice
     hidden_c = params[branches[0][0]]["w0"].shape[0]
-    w0 = torch.cat([params[n]["w0"] for n, _ in branches], dim=0)
-    b0 = torch.cat([params[n]["b0"] for n, _ in branches], dim=0)
-    hidden = relu(conv(shared, w0, b0, 1, precision))
+    keys = [k for k in ("w0", "b0", "w0" + BF16, "b0" + BF16)
+            if k in params[branches[0][0]]]
+    merged = {k: torch.cat([params[n][k] for n, _ in branches], dim=0)
+              for k in keys}
+    hidden = relu(conv(shared, merged, "w0", "b0", 1, precision))
     out = {}
     for i, (name, _c) in enumerate(branches):
         h = hidden[:, i * hidden_c:(i + 1) * hidden_c]
         out[name] = spatial.gather_rows(to_hwc(conv(
-            h, params[name]["w1"], params[name]["b1"], 1, precision)), rows)
+            h, params[name], "w1", "b1", 1, precision)), rows)
     return out

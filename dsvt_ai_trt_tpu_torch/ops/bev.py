@@ -16,9 +16,11 @@ def map_to_bev(pillar_feats: torch.Tensor, coords: torch.Tensor,
     dump row past the map, in a [H*W + 1, C] buffer, by one ``index_copy_``,
     and the result is the buffer's first H*W rows.  No boolean index, so no
     host read, and a CUDA graph can capture it.  The map's rows are one
-    contiguous [H*W, C] block, so the [H, W, C] result viewed as [1, C, H, W]
-    is already in the ``channels_last`` layout the conv stack runs in
-    (model/backbone2d.py): no transpose copy at the boundary.
+    contiguous [H*W, C] block, so the [H, W, C] result viewed by
+    ``ops.layout.to_nchw`` is a [1, C, H, W] tensor with ``channels_last``
+    strides, the layout the bf16 convs run in (model/backbone2d.py): the
+    bf16 and mixed stacks take it with no data moved; the fp32 stack
+    copies it once to NCHW.
 
     Inside ``parallel.spatial.spatial_sharding`` the map is this rank's
     rows [lo, hi) only (``spatial.bev_range``): [hi - lo, W, C], written

@@ -733,13 +733,16 @@ def _eager_and_graph(eager, graph, engine, n_frames: int) -> tuple:
 
 
 def card_modes(rank, world, device, frames: Dict[str, tuple], batch,
-               mark: Optional[Callable[[str], None]] = None) -> dict:
+               mark: Optional[Callable[[str], None]] = None,
+               parity_raw: Optional[dict] = None) -> dict:
     """chip_smoke.py's multi phase on a world of 2 sharing one card, at
     ``DEFAULT_CONFIG`` full caps and the seeded weights of its main path
     (``random_params(cfg, 0)``).  ``frames``: the three bench frames;
     ``batch``: (points, nums, targets) of the training steps, NumPy;
     ``mark``, if given, is called with each mode's name as the mode
-    starts.
+    starts; ``parity_raw`` (nested NumPy, default the seeded weights) are
+    the weights of the two bf16 modes, whose boxes the smoke script holds
+    to ``parity.py``'s gate.
 
     Each forward mode runs its eager path and its compiled one, an
     ``Engine`` whose graph is captured in segments where the mode has a
@@ -763,6 +766,7 @@ def card_modes(rank, world, device, frames: Dict[str, tuple], batch,
     nums = torch.as_tensor([frames[k][1] for k in names], dtype=torch.int32,
                            device=device)
     raw = weights.random_params(DEFAULT_CONFIG, 0)
+    raw16 = raw if parity_raw is None else parity_raw
     bf16 = dataclasses.replace(DEFAULT_CONFIG, precision="bf16")
     fp32 = DEFAULT_CONFIG
     every = range(len(names))
@@ -786,7 +790,7 @@ def card_modes(rank, world, device, frames: Dict[str, tuple], batch,
     # mp=2, bf16: the gather route; B1 on H/2 heads, B2 on gathered heads
     mark("mp_bf16")
     t0 = time.perf_counter()
-    engine = Engine(rank_params(raw, mp_mesh, device), bf16, device, True,
+    engine = Engine(rank_params(raw16, mp_mesh, device), bf16, device, True,
                     tp=mp_mesh.mp_group)
     got, res["mp_bf16"] = _eager_and_graph(
         lambda: [engine.eager(pts[b], nums[b]) for b in every],
@@ -803,8 +807,9 @@ def card_modes(rank, world, device, frames: Dict[str, tuple], batch,
     for tag, cfg in (("sp_fp32", fp32), ("sp_bf16", bf16)):
         mark(tag)
         t0 = time.perf_counter()
-        engine = Engine(weights.from_jax_params(raw, device), cfg, device,
-                        True, spatial=dist.group.WORLD)
+        engine = Engine(weights.from_jax_params(
+            raw16 if tag == "sp_bf16" else raw, device), cfg, device, True,
+            spatial=dist.group.WORLD)
         run_frames = [0] if tag == "sp_fp32" else list(every)
         got, res[tag] = _eager_and_graph(
             lambda: [engine.eager(pts[b], nums[b]) for b in run_frames],

@@ -45,6 +45,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..config import BACKBONE2D_STAGES
+from ..ops.layout import conv_format, laid_out, to_hwc, to_nchw
 from .collectives import all_gather_rows, halo_rows
 
 _STATE = threading.local()
@@ -146,17 +147,19 @@ def gather_split(x: torch.Tensor, n: int, per_row: int = 1) -> torch.Tensor:
 def conv2d_rows(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                 stride: int) -> torch.Tensor:
     """``F.conv2d(x, w, b, stride, padding=k//2)`` on this rank's rows.
-    x: [1, C, h, W] (channels_last), this rank's rows of the input level;
-    returns its rows of the output level.  Output rows [o, o + h/stride)
-    read input rows [stride*o - k//2, stride*o + h + k//2 - stride], so
-    the halo is k//2 rows above and k//2 - (stride - 1) (never fewer than
-    0) below, the same on every rank; width keeps its k//2 padding."""
+    x: [1, C, h, W], this rank's rows of the input level; returns its rows
+    of the output level.  Output rows [o, o + h/stride) read input rows
+    [stride*o - k//2, stride*o + h + k//2 - stride], so the halo is k//2
+    rows above and k//2 - (stride - 1) (never fewer than 0) below, the same
+    on every rank; width keeps its k//2 padding.  The rows with their halo
+    are a new [h + halo, W, C] map, which the conv reads in the layout of
+    ``ops.layout.conv_format``: as it is (NHWC) at bf16, copied to NCHW at
+    fp32."""
     k = w.shape[-1]
     pad = k // 2
     need_hi = max(0, pad - (stride - 1))
-    hwc = x[0].permute(1, 2, 0)                    # [h, W, C]
-    ext = halo_rows(hwc, pad, need_hi, _current())
-    ext = ext.permute(2, 0, 1).unsqueeze(0)        # [1, C, h + halo, W]
+    ext = halo_rows(to_hwc(x), pad, need_hi, _current())
+    ext = laid_out(to_nchw(ext), conv_format(w.dtype))
     return F.conv2d(ext, w, b, stride=stride, padding=(0, pad))
 
 

@@ -68,11 +68,11 @@ from ..config import DSVTConfig
 from ..model.detector import forward, forward_batch
 from ..ops import (attention_kernel, encoder_kernel, nms_kernel, nms_peel,
                    segment)
-from ..ops.common import resolve_device
+from ..ops.common import matmul_dtype, resolve_device
 from ..ops.postprocess import Detections
 from ..parallel import collectives
 from ..parallel.spatial import spatial_sharding
-from ..weights import from_jax_params
+from ..weights import fold_convs, from_jax_params
 from . import profiler
 
 log = logging.getLogger("dsvt_torch.compile")
@@ -462,6 +462,8 @@ class Engine:
             self.params = params
         else:
             self.params = from_jax_params(params, self.device)
+        if matmul_dtype(cfg.precision) == torch.bfloat16:
+            fold_convs(self.params)       # the bf16 convs' weights, once
         self._graph = None
         self.graph_launches = {}   # kernel launches one replay makes
         self.capture_seconds = None

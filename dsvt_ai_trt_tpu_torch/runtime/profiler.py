@@ -40,7 +40,9 @@ replay), "eager" (the forward or step op by op) or "host" (a warm-up):
   eager call's its ``call``;
 * counters the forward computes anyway, copied into the same buffer:
   ``occupancy`` (kept points, pillars, live sets per window spec) and
-  ``boxes_before_nms``, one entry a frame.
+  ``boxes_before_nms``, one entry a frame; and one the host counts as the
+  forward is traced or captured, written into the buffer as a constant:
+  ``bev_restrides`` (model/detector.py).
 
 Right after a replay the owner enqueues one copy of its marks buffer into
 a ring of ``RING`` page-locked host slots, on the stream of the result's
@@ -222,7 +224,10 @@ class Marks:
         else:
             self.buf[slot] = time.perf_counter_ns()
 
-    def counter(self, name: str, value: torch.Tensor) -> None:
+    def counter(self, name: str, value) -> None:
+        if isinstance(value, int):        # a host count: a fill, no copy
+            self.buf[self._take("counter", name, 1)].fill_(value)
+            return
         flat = value.reshape(-1)
         first = self._take("counter", name, flat.numel())
         self.buf[first:first + flat.numel()].copy_(flat)
@@ -397,9 +402,9 @@ def mark(name: str) -> None:
         _tracer.active.mark(name)
 
 
-def counter(name: str, value: torch.Tensor) -> None:
-    """Copy ``value`` (integers on the marks' device) into the buffer of
-    ``marking`` as counter ``name``."""
+def counter(name: str, value) -> None:
+    """Copy ``value`` (integers on the marks' device, or a Python int) into
+    the buffer of ``marking`` as counter ``name``."""
     if _tracer is not None and _tracer.active is not None:
         _tracer.active.counter(name, value)
 

@@ -9,10 +9,11 @@ bit, and ``from_jax_params`` carries either package's dict to torch tensors
 on a device, transposing conv weights to torch's OIHW.
 
 For training: ``trainable`` lists the leaves of that dict (the tensors an
-optimizer updates), ``refold`` remakes the derived encoder weights after an
-update, ``to_jax_params`` carries the tensors back to the NumPy dict (HWIO
-convs) and ``unfold_params`` turns them into a raw ``module.*`` checkpoint
-for ``save_wts``.
+optimizer updates), ``refold`` remakes the derived weights (the encoders'
+packed projections and kernel operands, the BEV convs' bf16 copies where
+``fold_convs`` made them) after an update, ``to_jax_params`` carries the
+tensors back to the NumPy dict (HWIO convs) and ``unfold_params`` turns
+them into a raw ``module.*`` checkpoint for ``save_wts``.
 """
 
 from __future__ import annotations
@@ -512,17 +513,37 @@ def from_jax_params(params: Dict, device="cuda"):
     return tree
 
 
-def refold(params: Dict) -> Dict:
-    """Remake every encoder pass's derived weights from its current leaves,
-    without autograd (``model.backbone3d.fold_encoder``: packed q/k/v
-    projections and their bf16 copies, kernel B2's bf16 weights and
-    stacked LayerNorm vectors).  Run it after every change to the leaves:
-    the inference path reads only the derived copies of those weights.
-    A derived weight that exists is written in place, so a CUDA graph that
-    captured its address (an ``Engine``'s, a compiled training step's)
-    reads the new values; a missing one is added."""
+def fold_convs(params: Dict) -> Dict:
+    """Add to a whole model the copies of its BEV ResNet's and head's conv
+    weights that the bf16 and mixed convs read (``model.backbone2d.fold``:
+    bf16 channels_last weight and bf16 bias, keys ending ``_bf16``), where
+    they are missing.  ``runtime.compile.Engine`` calls it at those
+    precisions; ``refold`` keeps the copies in step with the leaves."""
     import torch
-    from .model.backbone3d import fold_encoder  # local: avoids import cycle
+    from .model.backbone2d import BF16, conv_nodes, fold  # local: cycle
+
+    with torch.no_grad():
+        for node, w_key, b_key in list(conv_nodes(params)):
+            if w_key + BF16 not in node:
+                node[w_key + BF16], node[b_key + BF16] = fold(node[w_key],
+                                                              node[b_key])
+    return params
+
+
+def refold(params: Dict) -> Dict:
+    """Remake the derived weights of a whole model from its current leaves,
+    without autograd: every encoder pass's (``model.backbone3d.
+    fold_encoder``: packed q/k/v projections and their bf16 copies, kernel
+    B2's bf16 weights and stacked LayerNorm vectors) and the BEV convs'
+    bf16 copies that ``fold_convs`` made.  Run it after every change to
+    the leaves: the inference path reads only the derived copies of those
+    weights.  A derived weight that exists is written in place, so a CUDA
+    graph that captured its address (an ``Engine``'s, a compiled training
+    step's) reads the new values; a missing encoder weight is added."""
+    import torch
+    # local: avoids import cycles
+    from .model.backbone2d import BF16, conv_nodes, fold
+    from .model.backbone3d import fold_encoder
 
     with torch.no_grad():
         for b, block in enumerate(params["blocks"]):
@@ -535,12 +556,22 @@ def refold(params: Dict) -> Dict:
                         old.copy_(v)
                     else:
                         enc[k] = v
+        for node, w_key, b_key in (conv_nodes(params) if "head" in params
+                                   else ()):
+            if w_key + BF16 in node:
+                w, b = fold(node[w_key], node[b_key])
+                node[w_key + BF16].copy_(w)
+                node[b_key + BF16].copy_(b)
     return params
 
 
 def _is_folded(path) -> bool:
+    from .model.backbone2d import BF16
     from .model.backbone3d import DERIVED_KEYS
-    return path[0] == "blocks" and path[-1] in DERIVED_KEYS
+    if path[0] == "blocks":
+        return path[-1] in DERIVED_KEYS
+    return (path[0] in ("backbone2d", "head") and isinstance(path[-1], str)
+            and path[-1].endswith(BF16))
 
 
 def keystr(path) -> str:

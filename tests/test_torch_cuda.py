@@ -28,8 +28,11 @@ steps from the same weights: the loss at 1e-5 relative, each leaf within
 1e-6 of its largest plus 2 lr (the backward's atomics reorder sums, and
 AdamW's first steps move a leaf by about lr times the sign of its
 gradient, which a rounding difference can flip where it is near 0).
+The bf16 BEV ResNet and head at ``DEFAULT_CONFIG`` run NHWC: no cuDNN
+layout conversion, no strided copy, and ``bev_restrides`` 0.
 """
 
+import re
 import threading
 
 import numpy as np
@@ -768,3 +771,49 @@ def test_stage_marks_through_a_ring_that_wraps(dev, monkeypatch):
         assert [s["name"] for s in r["device"]] == list(STAGES)
         assert r["device"][0]["start_ns"] >= ends
         ends = r["device"][-1]["end_ns"]
+
+
+# cuDNN's layout conversions, and PyTorch's non-vectorised (strided) copy
+# and add: what a conv stack out of layout runs (ops/layout.py)
+CONVERSION = re.compile(r"nchwToNhwc|nhwcToNchw")
+STRIDED = re.compile(r"elementwise_kernel<128, ?4\b.*(direct_copy|CUDAFunctor_add)")
+
+
+def test_bev_stack_runs_nhwc_with_no_layout_conversion(dev):
+    """One eager bf16 frame at ``DEFAULT_CONFIG`` under the profiler: under
+    the ``backbone2d`` and ``head`` labels no cuDNN layout conversion runs,
+    no strided copy, and one strided add a conv, the bias's (PyTorch adds a
+    conv's bias after cuDNN's kernel, a broadcast over the channels that
+    its vectorised kernel does not take); the residual adds run vectorised.
+    With the tracer on, a replay's ``bev_restrides`` reads 0."""
+    import dataclasses
+
+    from dsvt_ai_trt_tpu_torch.bench import synthetic_frames
+    from dsvt_ai_trt_tpu_torch.config import DEFAULT_CONFIG
+    from dsvt_ai_trt_tpu_torch.model.detector import forward
+    from dsvt_ai_trt_tpu_torch.runtime import profiler, trace
+
+    cfg = dataclasses.replace(DEFAULT_CONFIG, precision="bf16")
+    params = weights.fold_convs(weights.from_jax_params(
+        weights.random_params(cfg, 0), dev))          # as an Engine does
+    pts, n = synthetic_frames(cfg)["dense_seed0"]
+    points = torch.from_numpy(pts).to(dev)
+    prof = trace.capture(lambda: forward(params, points, n, cfg, True, dev),
+                         (), iters=1)
+    names = [o["name"] for o in prof.ops
+             if o["stage"] in ("backbone2d", "head")]
+    convs = 19 + 3 + 3      # backbone2d's convs and deblocks, the lazy head
+    assert [m for m in names if CONVERSION.search(m)] == []
+    strided = [m for m in names if STRIDED.search(m)]
+    assert len(strided) == convs
+    assert all("CUDAFunctor_add" in m for m in strided)
+    assert sum("vectorized_elementwise_kernel" in m and "CUDAFunctor_add" in m
+               for m in names) == 8                # one a residual unit
+    profiler.enable_spans()
+    try:
+        Engine(params, cfg).warmup()(pts, n)
+        record = profiler.spans()[-1]
+    finally:
+        profiler.disable_spans()
+    assert record["kind"] == "replay"
+    assert record["counters"]["bev_restrides"] == [0]

@@ -45,6 +45,7 @@ from dsvt_ai_trt_tpu_torch import kernels, weights
 from dsvt_ai_trt_tpu_torch.model.detector import forward
 from dsvt_ai_trt_tpu_torch.ops import nms_peel
 from dsvt_ai_trt_tpu_torch.ops.bev import map_to_bev
+from dsvt_ai_trt_tpu_torch.ops.layout import to_nchw
 from dsvt_ai_trt_tpu_torch.ops.nms import nms
 from dsvt_ai_trt_tpu_torch.ops.voxelize import cell_edges
 from dsvt_ai_trt_tpu_torch.runtime.compile import Engine, SyncGuard
@@ -125,9 +126,12 @@ def test_bev_scatter_matches_jax_drop_mode(dtype):
                      torch.from_numpy(valid), (H, W))
     assert got.shape == (H, W, C) and got.dtype == dtype
     np.testing.assert_array_equal(got.float().numpy(), ref)
-    assert got.is_contiguous()      # the channels_last conv input, no copy
-    assert got.permute(2, 0, 1).unsqueeze(0).is_contiguous(
-        memory_format=torch.channels_last)
+    assert got.is_contiguous()
+    # the strides the bf16 conv sees: channels_last, batch stride included
+    # (is_contiguous(memory_format=...) skips size-1 dimensions)
+    x = to_nchw(got)
+    assert x.stride() == (H * W * C, 1, W * C, C)
+    assert x.data_ptr() == got.data_ptr()       # a view: no copy
 
 
 def _chain(n, spacing=0.9, length=4.0):
