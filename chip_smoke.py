@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. build the six CUDA kernels (the five of the main path and the
-     tracer's stage mark) from ``dsvt_ai_trt_tpu_torch/csrc`` (one
+  1. build the seven CUDA kernels (the five of the pillar model's main
+     path, the staged model's pooling and the tracer's stage mark) from ``dsvt_ai_trt_tpu_torch/csrc`` (one
      ``nvcc`` each, all at once) and print the build seconds;
   2. print the card's name and power limit;
   3. run ``Engine`` at ``DEFAULT_CONFIG`` width with ``precision="bf16"`` and
@@ -88,6 +88,15 @@ Phases (any failure exits non-zero):
      of a replay, finite boxes, occupancy under every cap; B1 and B3 held
      against their plain versions on the inputs that frame's eager pass
      gave them, and timed with bounds;
+ 11b. voxel (``check_voxel``): ``dsvt-voxel-waymo`` (upstream DSVT-V, read
+     from ``benchmark/configs/dsvt-voxel-waymo.json``) at bf16 on the same
+     frame, under every cap of that configuration: one replay's launch
+     counts (counts set to 0 just before it) 5/8/8/1/1 and ``stage_pool``
+     3, the replay bit-equal to the eager forward; ``stage_pool`` held
+     against its plain version on each of the three poolings' inputs from
+     the eager pass (atol 2e-2, rtol 1e-2 on live parents, zeros past the
+     count) and timed with bounds (the ``kernels`` line's ``stage_pool``
+     row: the three launches of a frame together);
  12. training (``check_training``), outside inference mode:
      ``DEFAULT_CONFIG`` at fp32 and full width on a fixed seeded batch of 2
      planted scenes (``data.synthetic_batch``): one step's loss and
@@ -202,8 +211,12 @@ BF16_FLOPS = 989e12                # dense tensor-core bf16
 F32_FLOPS = 67e12                  # f32 outside the tensor cores
 PER_FRAME = {"segment_max": 2, "set_attention": 8, "encoder_epilogue": 8,
              "rotated_overlap": 1, "nms_peel": 1}
-# what a frame launches with the tracer off: the graph holds no stage mark
-LAUNCHES = {**PER_FRAME, "stage_mark": 0}
+# what a frame launches with the tracer off: the graph holds no stage mark,
+# and a pillar model pools nothing between stages
+LAUNCHES = {**PER_FRAME, "stage_mark": 0, "stage_pool": 0}
+# a dsvt-voxel-waymo frame: four stages of one block (8 encoders), B3 in
+# the VFE (2) and in each of the 3 poolings' max, stage_pool in each
+VOXEL_LAUNCHES = {**LAUNCHES, "segment_max": 2 + 3, "stage_pool": 3}
 NMS_KERNELS = ("rotated_overlap", "nms_peel")   # none without NMS
 SCAN_BATCH = 10                    # frames in one scan graph (bench.BATCH)
 TRAIN_STEPS = 6                    # graph replays held against eager steps
@@ -220,10 +233,14 @@ REPLACES = {
     "encoder_epilogue": "dsvt_ai_trt_tpu/ops/encoder_pallas.py:64",
     "rotated_overlap": "dsvt_ai_trt_tpu/ops/nms_pallas.py:116",
     "nms_peel": "dsvt_ai_trt_tpu/ops/nms.py:298",   # XLA's lax.while_loop
+    "stage_pool": None,   # the JAX package has no staged backbone
 }
 NMS_REPS = (200, 20)               # host NMS timings: native, NumPy route
 GOLDEN_TINY = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "tests", "goldens", "tiny_seed0.json")
+# upstream DSVT-V's configuration, as the benchmark's cell runs it (data)
+VOXEL_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "benchmark", "configs", "dsvt-voxel-waymo.json")
 
 
 class SmokeFailure(Exception):
@@ -377,6 +394,7 @@ class Recorder:
     ``run_main_path`` holds equal to the replays' bit for bit."""
 
     def __init__(self, names=tuple(PER_FRAME), first_only=False):
+        from dsvt_ai_trt_tpu_torch.model import backbone3d
         from dsvt_ai_trt_tpu_torch.ops import (attention_kernel, encoder_kernel,
                                                nms, segment)
         self.calls = {name: [] for name in names}
@@ -388,6 +406,7 @@ class Recorder:
             (encoder_kernel, "encoder_epilogue", "encoder_epilogue"),
             (nms, "pairwise_overlap", "rotated_overlap"),
             (nms, "nms_peel", "nms_peel"),
+            (backbone3d, "stage_pool", "stage_pool"),
         ) if p[2] in names]
         self._orig = []
 
@@ -1287,6 +1306,90 @@ def check_waymo(tmp):
     return res
 
 
+def check_voxel():
+    """Phase 11b: ``dsvt-voxel-waymo`` (upstream DSVT-V, four stages of
+    3-D windows and three attention poolings, read from the benchmark's
+    configuration file) at bf16 with seeded random weights on phase 11's
+    180 000-point frame, whose voxels and sets fit every cap of that
+    configuration: the launch counts of one replay (counts set to 0 just
+    before it), the replay bit-equal to the eager forward, occupancy under
+    every cap; kernel ``stage_pool`` held against its plain version on
+    each of the three poolings' inputs from that eager pass (live parents
+    at atol 2e-2, rtol 1e-2 as the card test; zeros past the count), and
+    on each its device ms against its bound."""
+    import torch
+    from dsvt_ai_trt_tpu_torch import bench, kernels, weights
+    from dsvt_ai_trt_tpu_torch.config import DSVTConfig, occupancy_caps
+    from dsvt_ai_trt_tpu_torch.ops import pool_kernel as pk
+    from dsvt_ai_trt_tpu_torch.runtime.infer import Engine
+    with open(VOXEL_CONFIG) as f:
+        raw = json.load(f)["config"]
+    cfg = DSVTConfig.from_json(json.dumps({**raw, "precision": "bf16"}))
+    cfg.validate()
+    (pts, n), = bench.densify([bench.waymo_base_frame()],
+                              bench.WAYMO_POINTS, cfg.max_points)
+    engine = Engine(weights.random_params(cfg, 0), cfg).warmup()
+    engine(pts, n)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    dets = engine(pts, n)
+    torch.cuda.synchronize()
+    counts = kernels.counts()
+    check(counts == VOXEL_LAUNCHES,
+          f"voxel launch counts {counts} != {VOXEL_LAUNCHES}")
+    recorder = Recorder(names=("stage_pool",))
+    with recorder:
+        recorder.frame = "voxel"
+        check(same_dets(engine.eager(*on_card({"v": (pts, n)})["v"]), dets),
+              "voxel: the graph replay differs from the eager forward")
+    occ = dets.occupancy.cpu().tolist()
+    caps = list(occupancy_caps(cfg)[1])
+    check(all(o < c for o, c in zip(occ, caps)),
+          f"voxel occupancy {occ} reaches a cap of {caps}")
+    check(bool(torch.isfinite(dets.boxes).all())
+          and list(dets.boxes.shape) == [cfg.top_k, 9], "voxel: bad boxes")
+    calls = recorder.calls["stage_pool"]
+    check(len(calls) == 3, f"voxel: {len(calls)} poolings recorded, not 3")
+    rows, max_err = [], 0.0
+    for _frame, args, _kw in calls:
+        q, kv, child, _kb, _vb, count, _heads = args
+        got, want = pk.stage_pool_cuda(*args), pk.stage_pool_plain(*args)
+        live = int(count)
+        torch.testing.assert_close(got[:live].float(), want[:live].float(),
+                                   atol=2e-2, rtol=1e-2)
+        check(torch.all(got[live:] == 0),
+              f"stage_pool: parents >= count ({live}) not zero")
+        max_err = max(max_err, float((got[:live].float()
+                                      - want[:live].float()).abs().max()))
+        (N1, V), N0, C = child.shape, kv.shape[0], q.shape[1]
+        children = int((child[:live] < N0).sum())
+        # the children's k | v rows, the parents' query and output rows
+        nbytes = (children * 2 * C + 2 * live * C) * 2
+        ops = pk.flops(live, V, C)
+        b, by = bound_ms(nbytes, ops, BF16_FLOPS)
+        t_d, how = device_ms(lambda: pk.stage_pool_cuda(*args),
+                             "stage_pool_kernel")
+        rows.append({"children": children, "parents": live, "N0": N0,
+                     "N1": N1, "V": V, "C": C, "device_ms": t_d,
+                     "device_ms_by": how, "bound_ms": b, "bound_by": by,
+                     "bound_share": b / t_d})
+    sums = {key: sum(r[key] for r in rows)
+            for key in ("device_ms", "bound_ms")}
+    pool = {"ms": sum(cuda_ms(lambda a=a: pk.stage_pool_cuda(*a[1]))
+                      for a in calls),
+            "plain_ms": sum(cuda_ms(lambda a=a: pk.stage_pool_plain(*a[1]))
+                            for a in calls),
+            **sums, "device_ms_by": rows[0]["device_ms_by"],
+            "bound_by": rows[0]["bound_by"],
+            "bound_share": sums["bound_ms"] / sums["device_ms"],
+            "max_abs_err": max_err, "calls": rows,
+            "library_ms": None}
+    return {"config": "dsvt-voxel-waymo", "points": int(n), "occupancy": occ,
+            "caps": caps, "boxes": int(dets.count), "launches": counts,
+            "ms": cuda_ms(lambda: engine(pts, n), reps=5, warmup=1),
+            "stage_pool": pool}
+
+
 def grad_gate(name, got, ref):
     """The JAX package's per-leaf gradient gate (tests/test_training.py):
     max |d| <= max(5e-3 * leaf max, 5e-4).  Returns |d| / the gate."""
@@ -2169,6 +2272,7 @@ def _main(torch) -> int:
         timed("native", check_native, frames, tmp)
         timed("runtime", check_runtime, engine, frames, tmp)
         timed("waymo", check_waymo, tmp)
+        voxel = timed("voxel", check_voxel)
         with torch.inference_mode(False):
             timed("training", check_training, frames, tmp)
     timed("multi", check_multi, engine, frames)
@@ -2178,8 +2282,13 @@ def _main(torch) -> int:
     log({"phase": "bench_seconds", "seconds": time.perf_counter() - t,
          "script_seconds": time.perf_counter() - t_script})
 
+    # the pooling kernel of the staged path, per frame of phase 11b (its
+    # three launches together)
+    results["stage_pool"] = voxel["stage_pool"]
+    counts = {**counts, "stage_pool": voxel["launches"]["stage_pool"]}
+    named = (*PER_FRAME, "stage_pool")
     sources = {name: "dsvt_ai_trt_tpu_torch/csrc/" + kernels.SPECS[name][0]
-               for name in PER_FRAME}
+               for name in named}
     line = {"kernels": [{
         "name": name, "route": "cuda", "source": sources[name],
         "replaces": REPLACES[name], "launches": counts[name],
@@ -2188,7 +2297,7 @@ def _main(torch) -> int:
         "plain_ms": results[name]["plain_ms"],
         "bound_ms": results[name]["bound_ms"],
         "bound_by": results[name]["bound_by"],
-        "library_ms": results[name]["library_ms"]} for name in PER_FRAME]}
+        "library_ms": results[name]["library_ms"]} for name in named]}
     print(card, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

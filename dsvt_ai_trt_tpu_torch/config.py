@@ -37,6 +37,34 @@ class WindowSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class StageSpec:
+    """One stage of the sparse backbone (upstream DSVT's ``set_info``,
+    ``window_shape`` x ``hybrid_factor``, ``shifts_list`` and
+    ``downsample_stride`` entries of one stage).
+
+    ``num_blocks`` DSVT blocks run on the stage's voxels, in windows of
+    ``window_specs`` over a grid of ``sparse_shape`` (x, y, z), in sets of
+    ``set_size``; at most ``max_voxels`` voxels and ``max_sets`` sets per
+    partition.  ``stride`` (x, y, z) pools the stage's voxels into the
+    next stage's (``ops/pooling.py``); (1, 1, 1) on the last stage.  The
+    field names ``sparse_shape``, ``set_size`` and ``max_sets`` are
+    ``DSVTConfig``'s, so the partitions (``ops/windows.py``) take either.
+    """
+
+    sparse_shape: Tuple[int, int, int]
+    window_specs: Tuple[WindowSpec, ...]
+    num_blocks: int = 1
+    set_size: int = 36
+    max_voxels: int = 10000
+    max_sets: int = 800
+    stride: Tuple[int, int, int] = (1, 1, 1)
+
+    @property
+    def pool_volume(self) -> int:
+        return self.stride[0] * self.stride[1] * self.stride[2]
+
+
+@dataclasses.dataclass(frozen=True)
 class DSVTConfig:
     """Full pipeline configuration (defaults = reference params.h)."""
 
@@ -61,7 +89,7 @@ class DSVTConfig:
         WindowSpec(shape=(12, 12, 1), shift=(0, 0, 0)),
         WindowSpec(shape=(24, 24, 1), shift=(6, 6, 0)),
     )
-    max_voxels_per_window: int = 576   # MAX_VOXEL_NUM_PER_WIN
+    max_voxels_per_window: int = 576   # MAX_VOXEL_NUM_PER_WIN (read by none)
     max_sets: int = 800                # MAX_WIN_NUM (used as the set cap)
     set_size: int = 36                 # VOXEL_NUM_SET
 
@@ -103,6 +131,15 @@ class DSVTConfig:
     approx_topk: bool = False
     approx_recall_target: float = 0.95
 
+    # ---- staged sparse backbone (upstream DSVT-V) ----
+    # Empty: the pillar model, one stage described by the fields above
+    # (``stage_specs``).  Else every stage in order; the fields above then
+    # describe stage 0 (``max_pillars`` is its voxel cap, ``num_blocks``
+    # the blocks of all stages; ``validate`` holds them to it).  The
+    # block counter runs across stages: global block b reads set
+    # partition ``b % len(window_specs)`` of its stage.
+    stages: Tuple[StageSpec, ...] = ()
+
     # ---- execution ----
     # "fp32" = strict parity (Precision.HIGHEST matmuls); "mixed" = fp32 data
     # with bf16-input/fp32-accum matmuls (the TPU analogue of USE_FP16,
@@ -127,23 +164,66 @@ class DSVTConfig:
         return self.max_sets
 
     def validate(self) -> None:
+        # (no buffer is sized by max_voxels_per_window: the partitions
+        # size their in-window keys from each window's own shape)
         assert self.d_model % self.num_heads == 0
-        for spec in self.window_specs:
-            win_cap = spec.shape[0] * spec.shape[1] * spec.shape[2]
-            # windows can never overflow the per-window buffer when the
-            # buffer is at least the window's area
-            assert win_cap <= self.max_voxels_per_window, (
-                f"window {spec.shape} larger than max_voxels_per_window")
+        if not self.stages:
+            assert self.grid_size[2] == 1, (
+                "3-D voxels (grid_size[2] > 1) need the stages that pool "
+                "them down to the BEV grid")
+            return
+        stages = self.stages
+        first = stages[0]
+        assert (tuple(first.sparse_shape) == tuple(self.sparse_shape)
+                == tuple(self.grid_size)
+                and first.window_specs == self.window_specs
+                and first.set_size == self.set_size
+                and first.max_sets == self.max_sets
+                and first.max_voxels == self.max_pillars), (
+            "the global sparse_shape, window_specs, set_size, max_sets and "
+            "max_pillars describe stage 0")
+        assert self.num_blocks == sum(st.num_blocks for st in stages), (
+            "num_blocks counts the blocks of every stage")
+        for s, st in enumerate(stages):
+            assert st.window_specs and st.num_blocks >= 1, f"stage {s}"
+            assert 1 <= st.set_size <= 64, (
+                f"stage {s}: sets of at most 64 voxels (kernel B1)")
+            for spec in st.window_specs:
+                assert all(1 <= w <= n for w, n in
+                           zip(spec.shape, st.sparse_shape)), (
+                    f"stage {s}: window {spec.shape} outside the sparse "
+                    f"shape {st.sparse_shape}")
+            if s + 1 < len(stages):
+                nxt = tuple(-(-n // k) for n, k in
+                            zip(st.sparse_shape, st.stride))
+                assert nxt == tuple(stages[s + 1].sparse_shape), (
+                    f"stage {s + 1}: sparse shape {stages[s + 1].sparse_shape}"
+                    f" is not stage {s}'s {st.sparse_shape} over its stride "
+                    f"{st.stride}")
+                assert 2 <= st.pool_volume <= 8, (
+                    f"stage {s}: pooling volume of 2 to 8 voxels")
+        last = stages[-1]
+        assert tuple(last.stride) == (1, 1, 1) and last.sparse_shape[2] == 1 \
+            and tuple(last.sparse_shape[:2]) == tuple(self.grid_size[:2]), (
+                "the strides reach z = 1, at the BEV grid, at the last stage")
 
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), indent=2)
+        raw = dataclasses.asdict(self)
+        # a pillar model's stamp is the one it always was
+        if not self.stages:
+            del raw["stages"]
+        return json.dumps(raw, indent=2)
 
     @staticmethod
     def from_json(text: str) -> "DSVTConfig":
         raw = json.loads(text)
-        raw["window_specs"] = tuple(
-            WindowSpec(tuple(w["shape"]), tuple(w["shift"]))
-            for w in raw["window_specs"])
+        raw["window_specs"] = _window_specs(raw["window_specs"])
+        raw["stages"] = tuple(
+            StageSpec(tuple(st["sparse_shape"]),
+                      _window_specs(st["window_specs"]), st["num_blocks"],
+                      st["set_size"], st["max_voxels"], st["max_sets"],
+                      tuple(st["stride"]))
+            for st in raw.get("stages", ()))
         for key in ("voxel_size", "pc_range_min", "pc_range_max", "grid_size",
                     "sparse_shape", "pfn_channels"):
             raw[key] = tuple(raw[key])
@@ -160,6 +240,63 @@ class DSVTConfig:
                 "match if any were behavioral", dropped)
         raw = {k: v for k, v in raw.items() if k in known}
         return DSVTConfig(**raw)
+
+
+# The stages of a configuration.  Functions, not methods: the port's entry
+# points also take the JAX package's DSVTConfig (tests and config stamps
+# cross-load), which has no stages and is the pillar model.
+
+
+def staged(cfg) -> bool:
+    """Whether ``cfg`` describes a staged backbone (upstream DSVT-V)."""
+    return bool(getattr(cfg, "stages", ()))
+
+
+def stage_specs(cfg) -> Tuple[StageSpec, ...]:
+    """Every stage of the sparse backbone; the pillar model is one."""
+    if staged(cfg):
+        return cfg.stages
+    return (StageSpec(cfg.sparse_shape, cfg.window_specs, cfg.num_blocks,
+                      cfg.set_size, cfg.max_pillars, cfg.max_sets),)
+
+
+def stage_blocks(cfg) -> Tuple[range, ...]:
+    """The global block ids of each stage (the block counter)."""
+    out, b0 = [], 0
+    for st in stage_specs(cfg):
+        out.append(range(b0, b0 + st.num_blocks))
+        b0 += st.num_blocks
+    return tuple(out)
+
+
+def used_partitions(cfg, s: int) -> Tuple[int, ...]:
+    """The window specs of stage ``s`` whose set partitions its blocks
+    read: global block b reads ``b % len(window_specs)``."""
+    n = len(stage_specs(cfg)[s].window_specs)
+    return tuple(sorted({b % n for b in stage_blocks(cfg)[s]}))
+
+
+def occupancy_caps(cfg):
+    """(names, caps) in ``Detections.occupancy`` order: kept points, the
+    voxels of each stage, the live sets of each partition a stage reads
+    (the pillar model: kept points, pillars, sets per window spec)."""
+    if not staged(cfg):
+        return (["max_kept_points", "max_pillars"]
+                + [f"max_sets[{i}]" for i in range(len(cfg.window_specs))],
+                [cfg.max_kept_points, cfg.max_pillars]
+                + [cfg.max_sets_for(s) for s in cfg.window_specs])
+    names = ["max_kept_points"] + [f"max_voxels[{s}]"
+                                   for s in range(len(cfg.stages))]
+    caps = [cfg.max_kept_points] + [st.max_voxels for st in cfg.stages]
+    for s, st in enumerate(cfg.stages):
+        for i in used_partitions(cfg, s):
+            names.append(f"max_sets[{s}.{i}]")
+            caps.append(st.max_sets)
+    return names, caps
+
+
+def _window_specs(raw) -> Tuple[WindowSpec, ...]:
+    return tuple(WindowSpec(tuple(w["shape"]), tuple(w["shift"])) for w in raw)
 
 
 # 2D backbone block structure (reference: params.h:86-233 and

@@ -60,6 +60,8 @@ SPECS = {
     "nms_peel": ("nms_peel.cu", "dsvt_nms_peel",
                  [_P, _P, _I, _P, _F, _P, _P, _P]),
     "stage_mark": ("stage_mark.cu", "dsvt_stage_mark", [_P, _I, _P]),
+    "stage_pool": ("stage_pool.cu", "dsvt_stage_pool",
+                   [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 
 ARCH = "sm_90a"

@@ -22,6 +22,11 @@ fused path (kernels B1 + B2) is chosen by ``use_kernels`` and the precision
 (bf16 or mixed), not by the device; on CPU tensors its wrappers run their
 plain versions.
 
+A staged configuration (upstream DSVT-V) runs the same blocks stage by
+stage (``staged_forward``), global block ids running across stages, and
+pools between stages (``pool_forward``: upstream's attention pooling, the
+kernel ``stage_pool`` on the fused path); the pillar model is one stage.
+
 Inference reads the packed projections that ``fold_encoder`` made once from
 the weights; ``live_weights`` (training) packs them from the current leaves
 inside the autograd graph on every call, as the JAX package does, so their
@@ -30,18 +35,22 @@ gradients reach wq/wk/wv and the pos-embed linear.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
 import torch
 import torch.distributed as dist
 
-from ..config import DSVTConfig
+from ..config import DSVTConfig, stage_blocks
 from ..ops import encoder_kernel
+from ..ops import segment as seg_ops
 from ..ops.attention import set_attention_qkv, layer_norm, ffn, gelu_tanh
 from ..ops.common import dense, matmul_dtype, relu
+from ..ops.pool_kernel import stage_pool, stage_pool_plain
+from ..ops.pooling import PoolMap
 from ..ops.windows import SetPartition, WindowPartition
 from ..parallel import spatial
 from ..parallel.collectives import all_gather_rows, copy_to_tp, reduce_from_tp
+from ..runtime import profiler
 
 
 def pos_embed_hidden(xy: torch.Tensor, mlp: dict) -> torch.Tensor:
@@ -125,9 +134,12 @@ def backbone3d_forward(pillar_feats: torch.Tensor,
                        params: dict, cfg: DSVTConfig, *,
                        use_kernels: bool,
                        live_weights: bool = False,
-                       tp=None) -> torch.Tensor:
+                       tp=None, blocks: Sequence[int] = None) -> torch.Tensor:
     """pillar_feats: [P, C] -> [P, C] (f32) after the DSVT blocks, at
-    ``cfg.precision``.  ``params`` as ``weights.from_jax_params`` makes
+    ``cfg.precision``: ``blocks``, the global ids of one stage's blocks
+    (default: every block of the pillar model), with that stage's window
+    and set partitions (``set_parts`` by window spec: global block b reads
+    ``set_parts[b % len(set_parts)]``).  ``params`` as ``weights.from_jax_params`` makes
     them (with ``fold_encoder``'s weights).  ``use_kernels`` with bf16 or
     mixed precision takes the fused path (kernels B1 + B2).
     ``live_weights`` packs the projections from the current leaves
@@ -184,13 +196,15 @@ def backbone3d_forward(pillar_feats: torch.Tensor,
 
     P = pillar_feats.shape[0]
     plo, phi = spatial.my_rows(P)
-    hidden: List[List[torch.Tensor]] = [
-        [pos_embed_hidden(window_parts[e].xy_centered[plo:phi],
-                          params["posembed"][b][e])
-         for e in range(2)] for b in range(cfg.num_blocks)]
+    if blocks is None:
+        blocks = range(cfg.num_blocks)
+    hidden: Dict[int, List[torch.Tensor]] = {
+        b: [pos_embed_hidden(window_parts[e].xy_centered[plo:phi],
+                             params["posembed"][b][e])
+            for e in range(2)] for b in blocks}
 
     x = pillar_feats
-    for b in range(cfg.num_blocks):
+    for b in blocks:
         sp = set_parts[b % len(set_parts)]
         S, K = sp.key_mask.shape
         slo, shi = spatial.my_rows(S)
@@ -246,3 +260,81 @@ def backbone3d_forward(pillar_feats: torch.Tensor,
         if sharded:
             x = spatial.gather_split(x, P)
     return x
+
+
+# ---------------------------------------------------------------------------
+# Staged backbone (upstream DSVT-V): the stages' blocks with attention
+# pooling between them
+# ---------------------------------------------------------------------------
+
+# the keys fold_pool adds to a pooling's dict (none is a trained leaf)
+POOL_FOLDED_KEYS = ("w_kv", "kbias", "wq_bf16", "w_kv_bf16", "wo_bf16")
+
+
+def fold_pool(pool: dict) -> dict:
+    """The derived weights of one pooling: the key and value projections
+    side by side ([C, 2C]), each slot's key bias (its ``pos_embedding``
+    row through the key projection, plus the key bias: [V, C]), and the
+    bf16 copies of the products' weights."""
+    w_kv = torch.cat([pool["wk"], pool["wv"]], dim=1)
+    return {"w_kv": w_kv, "kbias": pool["pos"] @ pool["wk"] + pool["bk"],
+            "wq_bf16": pool["wq"].to(torch.bfloat16),
+            "w_kv_bf16": w_kv.to(torch.bfloat16),
+            "wo_bf16": pool["wo"].to(torch.bfloat16)}
+
+
+def pool_forward(x: torch.Tensor, pm: PoolMap, pool: dict, cfg: DSVTConfig,
+                 *, use_kernels: bool) -> torch.Tensor:
+    """One stage's voxels x [N0, C] (f32) -> the next stage's [N1, C] (f32):
+    upstream's ``Stage_ReductionAtt_Block`` on the placeholder of the
+    map's V slots a parent.  query = the max over the slots (an empty
+    slot is a zero row), key = slot + pos_embedding, value = slot, 8-head
+    attention with in- and out-projection biases, LayerNorm(attention +
+    query).  On the fused path (``use_kernels``, bf16 or mixed) the max is
+    kernel B3 over the children sorted by parent (with 0 where a slot is
+    empty) and the attention kernel ``stage_pool``; else the plain
+    placeholder and formula.  Parents past the count give zero queries."""
+    precision = cfg.precision
+    mdt = matmul_dtype(precision)
+    sfx = "_bf16" if mdt is torch.bfloat16 else ""
+    use_fused = use_kernels and precision in ("bf16", "mixed")
+    if use_fused:
+        m = seg_ops.segmented_max(x[pm.order], pm.is_start,
+                                  pm.child.shape[1], starts_only=True)[pm.first]
+        m = torch.where(pm.full[:, None], m, relu(m))
+    else:
+        m = torch.cat([x, x.new_zeros((1, x.shape[1]))])[pm.child].amax(1)
+    m = torch.where(pm.valid[:, None], m, torch.zeros_like(m))
+    q = dense(m, pool["wq" + sfx], pool["bq"], mdt).to(mdt)
+    kv = dense(x, pool["w_kv" + sfx], None, mdt).to(mdt)
+    attend = stage_pool if use_fused else stage_pool_plain
+    attn = attend(q, kv, pm.child, pool["kbias"], pool["bv"], pm.count,
+                  cfg.num_heads)
+    out = dense(attn, pool["wo" + sfx], pool["bo"], mdt) + m
+    return layer_norm(out, pool["ln_g"], pool["ln_b"], cfg.ln_eps)
+
+
+def staged_forward(feats: torch.Tensor, stages, params: dict,
+                   cfg: DSVTConfig, *, use_kernels: bool,
+                   live_weights: bool = False, tp=None) -> torch.Tensor:
+    """The staged backbone: stage 0's voxel features [N0, C] -> the last
+    stage's [Nn, C] (f32).  ``stages``: each stage's window partitions,
+    set partitions (by window spec, None where no block reads it) and
+    pooling map to the next stage (``model/detector.py:StageParts``).
+    Each stage runs its blocks (``backbone3d_forward`` with the global
+    block ids: the block counter runs across stages), then its pooling
+    under the ``pool`` label, with a device stage mark on entry to it and
+    one back into ``backbone3d`` after it while the tracer is on.  The
+    pillar model is one stage: its blocks, no pooling; ``live_weights``
+    and ``tp`` reach its blocks as in ``backbone3d_forward``."""
+    for s, (blocks, parts) in enumerate(zip(stage_blocks(cfg), stages)):
+        feats = backbone3d_forward(feats, parts.windows, parts.sets, params,
+                                   cfg, use_kernels=use_kernels,
+                                   live_weights=live_weights, tp=tp,
+                                   blocks=blocks)
+        if parts.pool is not None:
+            with profiler.stage_scope("pool"):
+                feats = pool_forward(feats, parts.pool, params["pool"][s], cfg,
+                                     use_kernels=use_kernels)
+            profiler.mark("backbone3d")
+    return feats

@@ -3,7 +3,12 @@
 voxelize -> VFE (2x segmented max, kernel B3) -> window/set partition per
 window spec -> DSVT backbone (4 blocks x 2 encoders; kernels B1 + B2 on the
 bf16/mixed fast paths) -> BEV scatter -> BEV ResNet -> lazy CenterHead ->
-top-k decode + score filter -> rotated NMS (kernel B4).
+top-k decode + score filter -> rotated NMS (kernel B4).  A staged
+configuration (``DSVTConfig.stages``, upstream DSVT-V) voxelizes on a 3-D
+grid and runs, per stage, its window and set partitions and its blocks,
+pooling each stage's voxels into the next (``ops/pooling.py``,
+``backbone3d.staged_forward``); the BEV scatter reads the last stage's
+voxels.  The pillar model is one stage.
 
 ``forward`` runs on ``device`` (default "cuda", which raises without a
 card; tests pass "cpu").  The parameters must already live there
@@ -43,22 +48,24 @@ same partitions.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 
-from ..config import DSVTConfig
+from ..config import DSVTConfig, stage_specs, staged, used_partitions
 from ..ops import layout, nms as nms_ops
 from ..ops.bev import map_to_bev
 from ..ops.common import resolve_device
 from ..ops.postprocess import Detections, decode_and_filter
+from ..ops.pooling import PoolMap, pool_map
 from ..ops.voxelize import Pillars, voxelize
-from ..ops.windows import partition
+from ..ops.windows import set_partition, window_partition
+from ..parallel import spatial
 from ..parallel.spatial import spatial_sharding
 from ..runtime import profiler
 from ..runtime.profiler import stage_scope
 from .backbone2d import backbone2d_forward
-from .backbone3d import backbone3d_forward
+from .backbone3d import staged_forward
 from .head import head_forward
 from .vfe import vfe_forward
 
@@ -75,11 +82,64 @@ def _inputs(params: Dict, points, num_points, device):
     return points, int(num_points)     # a scalar operand: nothing to copy
 
 
-def _partitions(pillars: Pillars, cfg: DSVTConfig):
-    """(window partitions, set partitions), one of each per window spec."""
-    parts = [partition(pillars.coords, pillars.pillar_valid, spec, cfg)
-             for spec in cfg.window_specs]
-    return [w for w, _ in parts], [s for _, s in parts]
+class StageParts(NamedTuple):
+    """The integer work of one backbone stage: ``windows``, a window
+    partition per window spec; ``sets``, a set partition per window spec,
+    None where none of the stage's blocks reads it; ``pool``, the map to
+    the next stage's voxels (None at the last); and the stage's voxels:
+    ``coords`` ([P, 2] (iy, ix) pillars, or [P, 3] (iz, iy, ix)),
+    ``valid`` and ``count``."""
+
+    windows: List
+    sets: List
+    pool: Optional[PoolMap]
+    coords: torch.Tensor
+    valid: torch.Tensor
+    count: torch.Tensor
+
+
+def _partitions(pillars: Pillars, cfg: DSVTConfig) -> List[StageParts]:
+    """Each stage's partitions and pooling map (the pillar model: one
+    stage, a window and a set partition per window spec)."""
+    specs = stage_specs(cfg)
+    coords, valid, count = (pillars.coords, pillars.pillar_valid,
+                            pillars.pillar_count)
+    out = []
+    for s, st in enumerate(specs):
+        used = used_partitions(cfg, s)
+        windows, sets = [], []
+        for i, spec in enumerate(st.window_specs):
+            windows.append(window_partition(coords, valid, spec, st))
+            sets.append(set_partition(windows[-1], valid, spec, st)
+                        if i in used else None)
+        pm = (pool_map(coords, valid, st, specs[s + 1])
+              if s + 1 < len(specs) else None)
+        out.append(StageParts(windows, sets, pm, coords, valid, count))
+        if pm is not None:
+            coords, valid, count = pm.coords, pm.valid, pm.count
+    return out
+
+
+def _occupancy(pillars: Pillars, stages: List[StageParts]) -> torch.Tensor:
+    """Kept points, each stage's voxels, then the live sets of each set
+    partition a stage reads (the pillar model: points, pillars, sets per
+    window spec)."""
+    return torch.stack([pillars.point_count] + [st.count for st in stages]
+                       + [sp.set_count for st in stages for sp in st.sets
+                          if sp is not None])
+
+
+def _bev_input(stages: List[StageParts]):
+    """The last stage's (iy, ix) and valid, for the BEV scatter."""
+    last = stages[-1]
+    return last.coords[:, -2:], last.valid
+
+
+def _unsharded(cfg: DSVTConfig, tp) -> None:
+    if staged(cfg) and (tp is not None or spatial.active()):
+        raise ValueError("a staged configuration (DSVTConfig.stages) runs on "
+                         "one device: tensor and spatial sharding of its "
+                         "stages and poolings are not written")
 
 
 STAGES = ("voxelize", "vfe", "partition", "backbone3d", "bev_scatter",
@@ -92,6 +152,7 @@ def forward(params: Dict, points, num_points, cfg: DSVTConfig,
     """points: [max_points, 4] (array or tensor); num_points: int or [].
     The hand-written kernels run where ``cfg.use_pallas`` is set.  ``tp``:
     the tensor-parallel group of the encoders (module docstring)."""
+    _unsharded(cfg, tp)
     points, num = _inputs(params, points, num_points, device)
     precision = cfg.precision
     use_kernels = cfg.use_pallas
@@ -101,14 +162,17 @@ def forward(params: Dict, points, num_points, cfg: DSVTConfig,
         feats = vfe_forward(pillars, params["vfe"], cfg,
                             use_kernels=use_kernels)
     with stage_scope("partition"):
-        wparts, sparts = _partitions(pillars, cfg)
+        stages = _partitions(pillars, cfg)
+    if len(stages) > 1 and profiler.tracer() is not None:
+        profiler.counter("pool_parents",
+                         torch.stack([st.pool.count for st in stages[:-1]]))
     with stage_scope("backbone3d"):
-        feats = backbone3d_forward(feats, wparts, sparts, params, cfg,
-                                   use_kernels=use_kernels, tp=tp)
+        feats = staged_forward(feats, stages, params, cfg,
+                               use_kernels=use_kernels, tp=tp)
     with stage_scope("bev_scatter"):
         if precision == "bf16":
             feats = feats.to(torch.bfloat16)
-        bev = map_to_bev(feats, pillars.coords, pillars.pillar_valid,
+        bev = map_to_bev(feats, *_bev_input(stages),
                          (cfg.grid_size[1], cfg.grid_size[0]))
     restrides = layout.restrides()
     with stage_scope("backbone2d"):
@@ -126,8 +190,7 @@ def forward(params: Dict, points, num_points, cfg: DSVTConfig,
                                        cfg.nms_threshold,
                                        use_kernels=use_kernels)
         dets = Detections(boxes=boxes, count=count)
-    occupancy = torch.stack([pillars.point_count, pillars.pillar_count]
-                            + [sp.set_count for sp in sparts])
+    occupancy = _occupancy(pillars, stages)
     profiler.counter("occupancy", occupancy)
     return dets._replace(occupancy=occupancy)
 
@@ -137,7 +200,7 @@ def forward_batch(params: Dict, points, num_points, cfg: DSVTConfig,
                   tp=None) -> Detections:
     """points [B, max_points, 4], num_points [B]: each frame through
     ``forward`` in turn; returns stacked Detections (boxes [B, top_k, 9],
-    count [B], occupancy [B, 2 + n_window_specs])."""
+    count [B], occupancy [B, 2 + n_window_specs] for the pillar model)."""
     dets = [forward(params, points[b], num_points[b], cfg, with_nms, device,
                     tp) for b in range(len(points))]
     return Detections(boxes=torch.stack([d.boxes for d in dets]),
@@ -165,25 +228,27 @@ class IntermediateOutputs(NamedTuple):
 
 def partition_frame(params, points, num_points, cfg: DSVTConfig,
                     device="cuda"):
-    """The integer stages of one frame, without autograd: (pillars, window
-    partitions, set partitions)."""
+    """The integer stages of one frame, without autograd: (pillars, each
+    stage's ``StageParts``)."""
     points, num = _inputs(params, points, num_points, device)
     with torch.no_grad():
         pillars = voxelize(points, num, cfg)
-        wparts, sparts = _partitions(pillars, cfg)
-    return pillars, wparts, sparts
+        stages = _partitions(pillars, cfg)
+    return pillars, stages
 
 
-def float_stages(params, pillars: Pillars, wparts, sparts, cfg: DSVTConfig,
-                 live_weights: bool = False, tp=None) -> IntermediateOutputs:
+def float_stages(params, pillars: Pillars, stages: List[StageParts],
+                 cfg: DSVTConfig, live_weights: bool = False,
+                 tp=None) -> IntermediateOutputs:
     """VFE to the full-map head on the plain paths, from the partitions of
-    ``partition_frame``; ``tp`` as in ``forward``."""
+    ``partition_frame``; ``tp`` as in ``forward``.  ``dsvt_feats`` are the
+    last stage's."""
+    _unsharded(cfg, tp)
     precision = cfg.precision
     pfeats = vfe_forward(pillars, params["vfe"], cfg, use_kernels=False)
-    dfeats = backbone3d_forward(pfeats, wparts, sparts, params, cfg,
-                                use_kernels=False, live_weights=live_weights,
-                                tp=tp)
-    bev = map_to_bev(dfeats, pillars.coords, pillars.pillar_valid,
+    dfeats = staged_forward(pfeats, stages, params, cfg, use_kernels=False,
+                            live_weights=live_weights, tp=tp)
+    bev = map_to_bev(dfeats, *_bev_input(stages),
                      (cfg.grid_size[1], cfg.grid_size[0]))
     bev2 = backbone2d_forward(bev, params["backbone2d"], precision)
     head_out = head_forward(bev2, params["head"], precision)
@@ -202,7 +267,11 @@ def forward_debug(params, points, num_points, cfg: DSVTConfig,
 def forward_train(params, points, num_points, cfg: DSVTConfig,
                   device="cuda", tp=None) -> IntermediateOutputs:
     """``forward_debug`` with autograd on and the projections packed from
-    the live weights (module docstring)."""
+    the live weights (module docstring); the pillar model only."""
+    if staged(cfg):
+        raise ValueError("training a staged configuration (DSVTConfig."
+                         "stages) is not written: its poolings define no "
+                         "backward pass here")
     return float_stages(params, *partition_frame(params, points, num_points,
                                                  cfg, device), cfg,
                         live_weights=True, tp=tp)

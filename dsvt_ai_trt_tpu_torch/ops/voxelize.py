@@ -17,6 +17,11 @@ integer output is bit-exact and the float features are too:
 
 Pillar ids follow ascending BEV cell index; points keep file order within a
 pillar, and the first ``max_points_per_pillar`` of them are kept.
+
+With ``grid_size[2] > 1`` (a voxel model, upstream DSVT-V) the cells are 3-D:
+the cell id is ``(iz * gy + iy) * gx + ix``, voxel ids follow it, ``coords``
+are [P, 3] (iz, iy, ix), and a point's centre offset takes its voxel's own z
+cell.  With one z cell every step is the pillar model's.
 """
 
 from __future__ import annotations
@@ -60,7 +65,8 @@ class Pillars(NamedTuple):
                   dcenter_xyz]; zero on invalid rows.
     point_pillar: [P1] pillar id per point (== max_pillars for invalid).
     point_valid:  [P1] bool.
-    coords:       [P, 2] (iy, ix) integer BEV cell per pillar.
+    coords:       [P, 2] (iy, ix) integer BEV cell per pillar; [P, 3]
+                  (iz, iy, ix) for 3-D voxels.
     num_points:   [P] points per pillar (capped).
     pillar_valid: [P] bool.
     pillar_count: [] number of valid pillars.
@@ -116,7 +122,10 @@ def voxelize(points: torch.Tensor, num_points, cfg: DSVTConfig) -> Pillars:
     edges_y = cell_edges(ymin, vy, gy, dev)
     ix = _edge_bin(x, edges_x, xmin, vx, gx)
     iy = _edge_bin(y, edges_y, ymin, vy, gy)
-    sentinel = gx * gy
+    edges_z = cell_edges(zmin, vz, gz, dev)
+    if gz > 1:
+        iy = _edge_bin(z, edges_z, zmin, vz, gz) * gy + iy
+    sentinel = gx * gy * gz
     cell = torch.where(valid, iy * gx + ix, torch.full_like(ix, sentinel))
 
     # group points by pillar: stable sort on the cell id keeps file order
@@ -145,8 +154,10 @@ def voxelize(points: torch.Tensor, num_points, cfg: DSVTConfig) -> Pillars:
     sx, sy, sz, sw = pay[:, 0], pay[:, 1], pay[:, 2], pay[:, 3]
     sbx = s_cell % gx
     sby = s_cell // gx
-    edges_z = cell_edges(zmin, vz, gz, dev)
-    sbz = _edge_bin(sz, edges_z, zmin, vz, gz)
+    if gz > 1:
+        sbz, sby = sby // gy, sby % gy
+    else:
+        sbz = _edge_bin(sz, edges_z, zmin, vz, gz)
     s_valid = s_cell != sentinel
 
     prev = torch.cat([s_cell.new_full((1,), -1), s_cell[:-1]])
@@ -200,6 +211,9 @@ def voxelize(points: torch.Tensor, num_points, cfg: DSVTConfig) -> Pillars:
     coords_flat = torch.where(pillar_valid, s_cell[starts_c],
                               torch.zeros_like(starts_c))
     coords = torch.stack([coords_flat // gx, coords_flat % gx], dim=-1)
+    if gz > 1:
+        coords = torch.cat([coords[:, :1] // gy, coords[:, :1] % gy,
+                            coords[:, 1:]], dim=-1)
     coords = torch.where(pillar_valid[:, None], coords, torch.zeros_like(coords))
 
     # 10-dim features; the cell index is re-derived from the point.  The

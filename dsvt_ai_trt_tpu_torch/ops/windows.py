@@ -13,11 +13,19 @@ gathers for the DSVT Eq.(3) local-index spreading.  Every output is integer
     (== max_pillars); kernel B1's zero output for them rests on this.
   * scatter-back goes through each pillar's canonical slot
     m = ceil(rank * S*n_sets / N), the first slot Eq.(3) maps onto it.
+
+3-D voxels (``coords`` [P, 3], iz first) take the same steps with their
+in-window z in the sort keys, windows along z where a window is lower than
+the grid (``window_grid``), and the in-window (x, y, z) minus half the
+window as the position-embedding input where the grid has more than one z
+cell (upstream DSVT-V).  ``cfg`` is a ``DSVTConfig`` or one stage of it
+(``config.StageSpec``): the partitions read its ``sparse_shape``,
+``set_size`` and ``max_sets``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -29,7 +37,8 @@ NEG_MASK = torch.finfo(torch.float32).min   # -3.4028235e38, exact in f32
 class WindowPartition(NamedTuple):
     """win_id [P] (sentinel for invalid pillars), inwin_xyz [P, 3] (x, y, z
     in-window coords), xy_centered [P, 2] float in-window (x, y) minus
-    window/2 (the pos-embed input)."""
+    window/2 (the pos-embed input); [P, 3] (x, y, z) on a grid with more
+    than one z cell."""
 
     win_id: torch.Tensor
     inwin_xyz: torch.Tensor
@@ -49,27 +58,42 @@ class SetPartition(NamedTuple):
     canon: torch.Tensor
 
 
+def window_grid(spec: WindowSpec, sparse_shape) -> Tuple[int, int, int]:
+    """Windows along (x, y, z): ``spec.num_windows``, with one window along
+    z where the window spans the grid's z (upstream then drops the z
+    shift)."""
+    nwx, nwy, nwz = spec.num_windows(sparse_shape)
+    return nwx, nwy, (1 if spec.shape[2] >= sparse_shape[2] else nwz)
+
+
 def window_partition(coords: torch.Tensor, pillar_valid: torch.Tensor,
                      spec: WindowSpec, cfg: DSVTConfig) -> WindowPartition:
-    """coords: [P, 2] (iy, ix)."""
-    wx, wy, _wz = spec.shape
-    sx, sy, _sz = spec.shift
-    nwx, nwy, _nwz = spec.num_windows(cfg.sparse_shape)
+    """coords: [P, 2] (iy, ix), or [P, 3] (iz, iy, ix)."""
+    wx, wy, wz = spec.shape
+    sx, sy, sz = spec.shift
+    nwx, nwy, nwz = window_grid(spec, cfg.sparse_shape)
 
-    shifted_x = coords[:, 1] + sx
-    shifted_y = coords[:, 0] + sy
+    shifted_x = coords[:, -1] + sx
+    shifted_y = coords[:, -2] + sy
     wcx = shifted_x // wx
     wcy = shifted_y // wy
-    win_id = torch.where(pillar_valid, wcy * nwx + wcx,
-                         torch.full_like(wcx, nwx * nwy))
+    win = wcy * nwx + wcx
+    if coords.shape[1] == 3:
+        shifted_z = coords[:, 0] + (sz if nwz > 1 else 0)
+        win = (shifted_z // wz) * (nwx * nwy) + win
+        cz = shifted_z % wz
+    else:
+        cz = torch.zeros_like(shifted_x)
+    win_id = torch.where(pillar_valid, win,
+                         torch.full_like(wcx, nwx * nwy * nwz))
     cx = shifted_x % wx
     cy = shifted_y % wy
-    cz = torch.zeros_like(cx)
     inwin = torch.stack([cx, cy, cz], dim=-1)
-    xy_centered = torch.stack([cx.float() - wx / 2.0, cy.float() - wy / 2.0],
-                              dim=-1)
+    centred = [cx.float() - wx / 2.0, cy.float() - wy / 2.0]
+    if cfg.sparse_shape[2] > 1:
+        centred.append(cz.float() - wz / 2.0)
     return WindowPartition(win_id=win_id, inwin_xyz=inwin,
-                           xy_centered=xy_centered)
+                           xy_centered=torch.stack(centred, dim=-1))
 
 
 def set_partition(part: WindowPartition, pillar_valid: torch.Tensor,
@@ -105,8 +129,8 @@ def set_partition(part: WindowPartition, pillar_valid: torch.Tensor,
     win_rank = torch.cumsum(new_win.long(), 0) - 1                    # [P]
     win_count = new_win.long().sum()
 
-    nw = spec.num_windows(cfg.sparse_shape)
-    W = min(P, nw[0] * nw[1])
+    nw = window_grid(spec, cfg.sparse_shape)
+    W = min(P, nw[0] * nw[1] * nw[2])
     win_rank_safe = torch.where(s_valid & (win_rank < W), win_rank,
                                 torch.full_like(win_rank, W))
     # (start, size) from segment extents: heads sort into window-rank order;

@@ -162,8 +162,8 @@ def batched_loss(params, points, num_points, targets: Targets,
 
     # autograd's thread recomputes it under the hook current here
     @carrying
-    def frame_loss(pillars, wparts, sparts, frame_targets):
-        out = float_stages(params, pillars, wparts, sparts, cfg,
+    def frame_loss(pillars, stages, frame_targets):
+        out = float_stages(params, pillars, stages, cfg,
                            live_weights=True, tp=tp).head_out
         return head_loss(out, frame_targets, dir_weight, aux_weight)
 

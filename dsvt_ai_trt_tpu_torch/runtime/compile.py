@@ -67,7 +67,7 @@ from .. import kernels
 from ..config import DSVTConfig
 from ..model.detector import forward, forward_batch
 from ..ops import (attention_kernel, encoder_kernel, nms_kernel, nms_peel,
-                   segment)
+                   pool_kernel, segment)
 from ..ops.common import matmul_dtype, resolve_device
 from ..ops.postprocess import Detections
 from ..parallel import collectives
@@ -323,7 +323,8 @@ PLAIN_VERSIONS = ((segment, "segmented_max_plain"),
                   (attention_kernel, "set_attention_plain"),
                   (encoder_kernel, "encoder_epilogue_plain"),
                   (nms_kernel, "pairwise_overlap_clip"),
-                  (nms_peel, "nms_peel_plain"))
+                  (nms_peel, "nms_peel_plain"),
+                  (pool_kernel, "stage_pool_plain"))
 aten = torch.ops.aten
 # inside inference mode a read reaches the dispatcher as ``item`` or
 # ``is_nonzero``, not decomposed to ``_local_scalar_dense``

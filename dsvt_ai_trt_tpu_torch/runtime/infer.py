@@ -43,7 +43,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..config import DSVTConfig
+from ..config import DSVTConfig, occupancy_caps
 from ..io.host_nms import nms_host
 from ..io.output import save_txt
 from ..io.pointcloud import load_bin
@@ -57,11 +57,8 @@ log = logging.getLogger("dsvt_torch.infer")
 
 def cap_table(cfg: DSVTConfig):
     """Cap names and values in ``Detections.occupancy`` order."""
-    names = ["max_kept_points", "max_pillars"] + [
-        f"max_sets[{i}]" for i in range(len(cfg.window_specs))]
-    caps = np.array([cfg.max_kept_points, cfg.max_pillars]
-                    + [cfg.max_sets_for(s) for s in cfg.window_specs])
-    return names, caps
+    names, caps = occupancy_caps(cfg)
+    return names, np.array(caps)
 
 
 def _finish(cfg: DSVTConfig, path: str, boxes: np.ndarray, count: int,

@@ -34,7 +34,10 @@ replay), "eager" (the forward or step op by op) or "host" (a warm-up):
   (``csrc/stage_mark.cu``) that stores the card's ``%globaltimer`` into a
   slot of the owner's ``Marks`` buffer on entry to each stage and once
   after the last ("end").  A frame marks the detector's ``STAGES``
-  (10 marks with NMS), a step ``TRAIN_STAGES`` (4 marks).  Inside a
+  (10 marks with NMS; a staged backbone also each pooling), a step
+  ``TRAIN_STAGES`` (4 marks); ``mark_names`` gives the names a call's
+  marks open, which a trace of the card needs (``runtime/trace.py``,
+  which cannot read a mark's slot).  Inside a
   capture the launches are graph nodes, so every replay stamps its own
   frame.  A replay's stage spans have its ``graph_launch`` as parent, an
   eager call's its ``call``;
@@ -224,6 +227,12 @@ class Marks:
         else:
             self.buf[slot] = time.perf_counter_ns()
 
+    def names(self) -> Tuple[str, ...]:
+        """The stages the marks written since ``reset`` open, in order
+        ("end" last)."""
+        return tuple(name for kind, name, _, _ in self.entries
+                     if kind == "mark")
+
     def counter(self, name: str, value) -> None:
         if isinstance(value, int):        # a host count: a fill, no copy
             self.buf[self._take("counter", name, 1)].fill_(value)
@@ -366,6 +375,17 @@ def disable_spans() -> None:
 def tracer() -> Optional[Tracer]:
     """The tracer, or None while it is off."""
     return _tracer
+
+
+def mark_names(fn) -> Optional[Tuple[str, ...]]:
+    """The stages the marks of a call of ``fn`` open, in order, "end" last:
+    of the graph of ``fn``, an ``Engine`` or a ``CompiledTrainStep``, or,
+    for its ``eager`` method, of its last eager call; None where there are
+    no marks (the tracer off, or no call yet)."""
+    owner = getattr(fn, "__self__", fn)
+    eager = getattr(fn, "__name__", None) == "eager"
+    marks = getattr(owner, "_eager_marks" if eager else "_marks", None)
+    return marks.names() if marks is not None and marks.entries else None
 
 
 def new_marks(device) -> Optional[Marks]:

@@ -18,7 +18,8 @@ exports the Chrome trace and parses it (``parse_trace``):
     while ``runtime.profiler.enable_spans`` was on), each of its events
     that no label holds goes to the stage whose mark last ran before it
     (the mark itself included; the closing "end" mark and what follows it
-    stay ``other``), so ``capture(engine, ...)`` splits the served graph;
+    stay ``other``), so ``capture(engine, ...)`` splits the served graph
+    (by the names its marks were placed under, ``profiler.mark_names``);
   * a frame's window on the device timeline runs from the start of its
     first event to the end of its last.
 
@@ -49,12 +50,12 @@ import itertools
 import json
 import os
 import tempfile
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from ..model.detector import STAGES
-from .profiler import TRAIN_STAGES, FlopCount, count_flops
+from .profiler import FlopCount, count_flops, mark_names
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 MARK = "stage_mark_kernel"     # csrc/stage_mark.cu
@@ -204,19 +205,24 @@ class DeviceProfile:
         return "\n".join(lines)
 
 
-def _mark_names(count: int) -> Tuple[str, ...]:
-    """The stages ``count`` marks of a graph open: the detector's
-    ``STAGES`` (or without ``nms``) once a frame of the graph, else a
-    training step's ``TRAIN_STAGES`` once a step, then "end"."""
-    for stages in (STAGES, STAGES[:-1], TRAIN_STAGES):
-        frames, rest = divmod(count - 1, len(stages))
-        if frames and not rest:
-            return stages * frames + ("end",)
-    raise ValueError(f"{count} stage marks in a frame are neither the "
-                     "detector's stages nor a training step's")
+def _mark_names(count: int, marks: Optional[Sequence[str]]
+                ) -> Tuple[str, ...]:
+    """The stages ``count`` marks of a frame open: ``marks``, the names the
+    graph's owner placed (``profiler.mark_names``: one call of the graph,
+    "end" last), once a call."""
+    if marks is None:
+        raise ValueError(f"{count} stage marks in a frame, and no names for "
+                         "them: pass the names their owner placed "
+                         "(profiler.mark_names)")
+    calls, rest = divmod(count, len(marks))
+    if calls and not rest and marks[-1] == "end":
+        return tuple(marks) * calls
+    raise ValueError(f"{count} stage marks in a frame are not calls of the "
+                     f"{len(marks)} marks their owner placed")
 
 
-def _split_by_marks(rows: List[dict], n_iters: int) -> None:
+def _split_by_marks(rows: List[dict], n_iters: int,
+                    marks: Optional[Sequence[str]]) -> None:
     """Give each frame's events that no stage label holds to the stage
     whose mark last ran before them (module docstring)."""
     for i in range(n_iters):
@@ -225,7 +231,7 @@ def _split_by_marks(rows: List[dict], n_iters: int) -> None:
         count = sum(MARK in r["name"] for r in mine)
         if not count:
             continue
-        names = _mark_names(count)
+        names = _mark_names(count, marks)
         k = -1
         for r in mine:
             k += MARK in r["name"]
@@ -233,15 +239,15 @@ def _split_by_marks(rows: List[dict], n_iters: int) -> None:
                 r["stage"] = names[k]
 
 
-def parse_trace(path: str, n_iters: int, timeline: str = "device"
-                ) -> DeviceProfile:
+def parse_trace(path: str, n_iters: int, timeline: str = "device",
+                marks: Optional[Sequence[str]] = None) -> DeviceProfile:
     """Parse a Chrome trace that ``torch.profiler`` exported (.json or
     .json.gz) of ``n_iters`` frames (see the module docstring).  A frame's
-    stage marks open, in order, the detector's ``STAGES`` (without ``nms``
-    where their count says so) once a frame of the graph, or a training
-    step's ``TRAIN_STAGES``, then "end".  Raises when the trace holds
-    another number of ``frame`` host spans, a frame with no event on the
-    timeline, or a frame with a count of marks that names neither."""
+    stage marks open, in order, ``marks`` (the names the graph's owner
+    placed, "end" last; ``profiler.mark_names``) once a call of the graph.
+    Raises when the trace holds another number of ``frame`` host spans, a
+    frame with no event on the timeline, or a frame with marks that are
+    not a number of calls of ``marks`` (or with marks and no ``marks``)."""
     opener = gzip.open if path.endswith(".gz") else open
     with opener(path, "rt") as f:
         events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
@@ -287,7 +293,7 @@ def parse_trace(path: str, n_iters: int, timeline: str = "device"
                      "frame": frame,
                      "stage": spans[span][2] if span is not None else "other"})
     if timeline == "device":
-        _split_by_marks(rows, n_iters)
+        _split_by_marks(rows, n_iters, marks)
     windows = []
     for i in range(n_iters):
         mine = [(r["ts"], r["ts"] + r["dur"]) for r in rows if r["frame"] == i]
@@ -333,6 +339,7 @@ def capture(fn: Callable, args: tuple, iters: int = 10,
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
-        result = parse_trace(path, iters, "device" if on_card else "host")
+        result = parse_trace(path, iters, "device" if on_card else "host",
+                             mark_names(fn))
     result.flops = count_flops(getattr(fn, "eager", fn), *args)
     return result

@@ -156,8 +156,10 @@ def test_bench_prints_its_line(golden_dir, capsys):
 def test_tiny_config_round_trips_through_json():
     cfg = tiny_config()
     from dsvt_ai_trt_tpu_torch.config import DSVTConfig
-    back = DSVTConfig.from_json(cfg.to_json())
-    assert dataclasses.asdict(back) == dataclasses.asdict(cfg)
+    back = dataclasses.asdict(DSVTConfig.from_json(cfg.to_json()))
+    # the port's staged-backbone field, at the pillar model's default
+    assert back.pop("stages") == ()
+    assert back == dataclasses.asdict(cfg)
 
 
 def test_train_checkpoints_resumes_and_exports(golden_dir, tmp_path, capsys):

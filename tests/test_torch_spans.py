@@ -14,7 +14,9 @@ mark reads the host clock:
 * a training step's record holds forward, backward and optimizer;
 * ``write_spans`` writes a Chrome trace that ``json`` reads back;
 * ``runtime/trace.parse_trace`` gives a replay's device events to the
-  stage between its marks.
+  stage between its marks, named as the graph's owner placed them
+  (``profiler.mark_names``), a staged frame's included, and refuses marks
+  without their names.
 """
 
 import json
@@ -112,6 +114,7 @@ def test_tracer_off_records_nothing(tiny, monkeypatch):
     assert engine.calls == step.calls == 0
     assert engine._marks is engine._eager_marks is None
     assert step._marks is step._eager_marks is None
+    assert profiler.mark_names(engine) is profiler.mark_names(step) is None
 
 
 @pytest.mark.parametrize("with_nms", [True, False])
@@ -136,12 +139,16 @@ def test_eager_frames_record_their_stages_and_counters(tiny, tracing,
         assert rec["counters"]["occupancy"] == [dets.occupancy.tolist()]
         before = forward(params, pts, n, cfg, with_nms=False, device="cpu")
         assert rec["counters"]["boxes_before_nms"] == [int(before.count)]
+    # the names an eager call's marks open, as parse_trace takes them
+    assert profiler.mark_names(engine.eager) == stages + ("end",)
 
 
 def test_replays_nest_their_spans_in_call(tiny, tracing, monkeypatch):
     cfg, params, frames = tiny
     engine = _captured(monkeypatch, cfg, params)
     got = [engine._traced_call(pts, n) for pts, n in frames]
+    # the names the graph's marks open, as parse_trace takes them
+    assert profiler.mark_names(engine) == STAGES + ("end",)
     replays = [r for r in profiler.spans() if r["kind"] == "replay"]
     assert [r["id"] for r in replays] == [2, 3]    # 1: the first replay
     for rec, dets, (pts, n) in zip(replays, got, frames):
@@ -253,12 +260,47 @@ def _replay_trace(names):
 def test_parse_trace_splits_a_replay_by_its_marks(tmp_path, names):
     path = tmp_path / "trace.json"
     path.write_text(json.dumps({"traceEvents": _replay_trace(names)}))
-    prof = parse_trace(str(path), 1)
+    prof = parse_trace(str(path), 1, marks=names)
     stages = [n for n in names if n != "end"]
     assert prof.stage_ms() == pytest.approx(
         {**{n: 0.011 for n in stages}, "other": 0.011})
     assert [r["name"] for r in prof.stage_ops(stages[0])] == [
         f"{stages[0]}_kernel", "stage_mark_kernel(unsigned long long*, int)"]
+
+
+def _staged_frame(pools):
+    """The marks of a staged frame with NMS: each pooling marked on entry
+    and back into ``backbone3d`` after it (model/backbone3d.py)."""
+    cut = STAGES.index("backbone3d") + 1
+    return STAGES[:cut] + ("pool", "backbone3d") * pools + STAGES[cut:] + (
+        "end",)
+
+
+@pytest.mark.parametrize("pools", [1, 3])
+def test_parse_trace_names_a_staged_frame(tmp_path, pools):
+    # three poolings: 15 marks and "end", a count five training steps fit
+    names = _staged_frame(pools)
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": _replay_trace(names)}))
+    prof = parse_trace(str(path), 1, marks=names)
+    assert prof.stage_ms() == pytest.approx(
+        {**{n: 0.011 for n in STAGES}, "backbone3d": 0.011 * (pools + 1),
+         "pool": 0.011 * pools, "other": 0.011})
+
+
+def test_parse_trace_holds_the_marks_to_their_names(tmp_path):
+    # two pillar frames of one graph without NMS: 16 marks and "end", as
+    # many as one staged frame of four poolings without NMS
+    names = STAGES[:-1] * 2 + ("end",)
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": _replay_trace(names)}))
+    prof = parse_trace(str(path), 1, marks=names)
+    assert prof.stage_ms() == pytest.approx(
+        {**{n: 0.022 for n in STAGES[:-1]}, "other": 0.011})
+    with pytest.raises(ValueError, match="not calls of the 10 marks"):
+        parse_trace(str(path), 1, marks=STAGES + ("end",))
+    with pytest.raises(ValueError, match="no names"):
+        parse_trace(str(path), 1)
 
 
 def test_parse_trace_refuses_marks_it_cannot_name(tmp_path):
@@ -267,3 +309,5 @@ def test_parse_trace_refuses_marks_it_cannot_name(tmp_path):
         ("a", "b", "end"))}))
     with pytest.raises(ValueError, match="3 stage marks"):
         parse_trace(str(path), 1)
+    with pytest.raises(ValueError, match="3 stage marks"):
+        parse_trace(str(path), 1, marks=STAGES + ("end",))
