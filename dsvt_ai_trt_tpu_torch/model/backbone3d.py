@@ -45,6 +45,7 @@ from ..ops import encoder_kernel
 from ..ops import segment as seg_ops
 from ..ops.attention import set_attention_qkv, layer_norm, ffn, gelu_tanh
 from ..ops.common import dense, matmul_dtype, relu
+from ..ops.gather import take_rows
 from ..ops.pool_kernel import stage_pool, stage_pool_plain
 from ..ops.pooling import PoolMap
 from ..ops.windows import SetPartition, WindowPartition
@@ -63,7 +64,7 @@ def scatter_back(attn_flat: torch.Tensor, canon: torch.Tensor) -> torch.Tensor:
     """Gather each pillar's canonical set-slot output.  attn_flat: [S*K, C]
     (row = flat slot); canon: [P] flat slot, S*K = dump -> zeros."""
     n = attn_flat.shape[0]
-    out = attn_flat[canon.clamp(max=n - 1)]
+    out = take_rows(attn_flat, canon.clamp(max=n - 1))
     return torch.where((canon < n)[:, None], out, torch.zeros_like(out))
 
 

@@ -8,8 +8,9 @@ reductions run as kernel B3 (ops/segment.py) over segments of at most
 ``cfg.max_points_per_pillar`` rows: the full segmented max, then the
 ``starts_only`` form gathered at each pillar's first row.  On the bf16
 path the point stream is bf16 (max commutes with monotone rounding).
-Without it (``forward_debug``) the float32 ``scatter_max`` reference runs
-instead.
+Without it (``forward_debug``, training) the float32 ``scatter_max``
+reference runs instead, and ``pillar_max`` alone where no point reads the
+pillar's max back.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 from ..config import DSVTConfig
 from ..ops import segment as seg_ops
 from ..ops.common import dense, matmul_dtype, relu
-from ..ops.scatter import scatter_max
+from ..ops.scatter import pillar_max, scatter_max
 from ..ops.voxelize import Pillars
 
 
@@ -60,7 +61,7 @@ def vfe_forward(pillars: Pillars, params: dict, cfg: DSVTConfig, *,
         pillar_feats = seg_ops.segmented_max(x, is_start, cap,
                                              starts_only=True)[starts]
     else:
-        _, pillar_feats = scatter_max(x, pid, pillars.point_valid,
-                                      cfg.max_pillars)
+        pillar_feats = pillar_max(x, pid, pillars.point_valid,
+                                  cfg.max_pillars)[:cfg.max_pillars]
     return torch.where(pillars.pillar_valid[:, None], pillar_feats,
                        torch.zeros_like(pillar_feats))

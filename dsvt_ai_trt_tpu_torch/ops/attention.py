@@ -18,6 +18,7 @@ import torch
 
 from . import attention_kernel
 from .common import matmul_dtype
+from .gather import take_rows
 
 
 def gather_rows(table: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
@@ -53,7 +54,7 @@ def set_attention_qkv(qkv_p: torch.Tensor, inds: torch.Tensor,
 
     # zero dump row: the JAX gather's out-of-bounds fill
     table = torch.cat([qkv_p.to(gt), qkv_p.new_zeros((1, 3 * C), dtype=gt)])
-    qkv = table[inds]                                          # [S, K, 3C]
+    qkv = take_rows(table, inds)                               # [S, K, 3C]
     q = qkv[..., :C].reshape(S, K, H, D)
     k = qkv[..., C:2 * C].reshape(S, K, H, D)
     v = qkv[..., 2 * C:].reshape(S, K, H, D)

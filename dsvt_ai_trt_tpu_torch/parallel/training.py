@@ -41,6 +41,11 @@ backend) wraps each frame's float stages in ``torch.utils.checkpoint``; the
 integer stages run before it and carry no gradient, so the recomputation
 reads the same partitions.  The step draws no random number, so the
 checkpoint keeps no RNG state (reading the card's would stop a capture).
+The float stages' row gathers (``ops/gather.py:take_rows``) run as
+``index_select``, whose backward is one ``index_add_``; with the tracer on,
+the step's ``grad_gathers`` counter holds how many its forward ran (17 a
+frame at the pillar model's 4 blocks: two per encoder pass, one in the
+VFE; ``remat``'s recomputation not counted).
 
 ``make_train_step(..., mesh=...)`` trains over a ``parallel.mesh`` mesh.
 dp: each dp rank takes its B/dp frames of the global batch, and after the
@@ -70,6 +75,7 @@ from .. import kernels
 from ..config import DSVTConfig
 from ..model.detector import float_stages, forward_train, partition_frame
 from ..ops.common import resolve_device
+from ..ops.gather import grad_gathers
 from ..runtime import profiler
 from ..runtime.compile import capture_graph, capture_segments
 from ..weights import (keystr, named_leaves, refold, to_numpy_leaf,
@@ -299,9 +305,11 @@ def make_train_step(cfg: DSVTConfig, params, optimizer=None,
             points, num_points = points[rows], num_points[rows]
             targets = Targets(*(t[rows] for t in targets))
         optimizer.zero_grad(set_to_none=True)
+        gathers = grad_gathers()
         loss = batched_loss(params, points, num_points, targets, cfg,
                             remat=remat, dir_weight=dir_weight,
                             aux_weight=aux_weight, device=device, tp=tp)
+        profiler.counter("grad_gathers", grad_gathers() - gathers)
         profiler.mark("backward")
         loss.backward()
         profiler.mark("optimizer")
@@ -384,10 +392,10 @@ class CompiledTrainStep:
     warm-up) the graph also holds the step's marks (``TRAIN_STAGES``: step
     start, after ``batched_loss``, after the backward, after the update and
     ``refold``), and each call, replayed or eager, leaves a record numbered
-    by ``calls``: host spans ``call``, ``copy_in``, ``graph_launch`` and the
-    step's marks (``runtime/profiler.py``).  The warm-up's record has the
-    spans ``kernels`` (the mark kernel), ``warm_runs`` and ``capture``: it
-    replays nothing."""
+    by ``calls``: host spans ``call``, ``copy_in``, ``graph_launch``, the
+    step's marks and its ``grad_gathers`` counter (``runtime/profiler.py``).
+    The warm-up's record has the spans ``kernels`` (the mark kernel),
+    ``warm_runs`` and ``capture``: it replays nothing."""
 
     WARM_RUNS = 2
 

@@ -45,7 +45,9 @@ replay), "eager" (the forward or step op by op) or "host" (a warm-up):
   ``occupancy`` (kept points, pillars, live sets per window spec) and
   ``boxes_before_nms``, one entry a frame; and one the host counts as the
   forward is traced or captured, written into the buffer as a constant:
-  ``bev_restrides`` (model/detector.py).
+  ``bev_restrides`` (model/detector.py); a step's one, ``grad_gathers``
+  (the row gathers its forward ran as ``index_select``, ops/gather.py;
+  parallel/training.py).
 
 Right after a replay the owner enqueues one copy of its marks buffer into
 a ring of ``RING`` page-locked host slots, on the stream of the result's

@@ -27,7 +27,8 @@ against their eager runs.  The compiled training step against eager
 steps from the same weights: the loss at 1e-5 relative, each leaf within
 1e-6 of its largest plus 2 lr (the backward's atomics reorder sums, and
 AdamW's first steps move a leaf by about lr times the sign of its
-gradient, which a rounding difference can flip where it is near 0).
+gradient, which a rounding difference can flip where it is near 0); a
+profiled replay runs no sort-based ``indexing_backward_kernel``.
 The bf16 BEV ResNet and head at ``DEFAULT_CONFIG`` run NHWC: no cuDNN
 layout conversion, no strided copy, and ``bev_restrides`` 0.
 """
@@ -526,6 +527,44 @@ def test_compiled_train_step_equals_eager(dev, tmp_path):
     with pytest.raises(ValueError, match="graph takes"):
         compiled(batch[0][:1], batch[1][:1],
                  type(batch[2])(*(t[:1] for t in batch[2])))
+
+
+def test_compiled_train_step_sums_gathers_with_index_add(dev, tmp_path):
+    """A profiled replay of ``CompiledTrainStep`` (tiny configuration, fp32,
+    batch 2, the tracer on) runs no ``indexing_backward_kernel``, PyTorch's
+    sort-based backward of ``table[idx]``: the row gathers' backward is
+    ``index_add_`` (ops/gather.py), and the step's ``grad_gathers`` reads
+    4 a block and 1 for the VFE a frame."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from dsvt_ai_trt_tpu_torch.data import synthetic_batch
+    from dsvt_ai_trt_tpu_torch.parallel.training import CompiledTrainStep
+    from dsvt_ai_trt_tpu_torch.runtime import profiler
+
+    cfg = _tiny_config("fp32")
+    batch = synthetic_batch(np.random.default_rng(3), cfg, 2, device=dev,
+                            n_objects=2, n_ground=200, pts_per_obj=30)
+    profiler.enable_spans()
+    try:
+        step = CompiledTrainStep(cfg, weights.from_jax_params(
+            weights.random_params(cfg, 3), dev), 2).warmup()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            loss = step(*batch)
+            torch.cuda.synchronize()
+        (rec,) = [r for r in profiler.spans() if r["kind"] == "replay"]
+    finally:
+        profiler.disable_spans()
+    assert torch.isfinite(loss)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    kernels_run = [e["name"] for e in json.loads(path.read_text())[
+        "traceEvents"] if e.get("cat") == "kernel"]
+    assert kernels_run                  # the profiler sees the graph's kernels
+    assert [k for k in kernels_run if "indexing_backward_kernel" in k] == []
+    assert rec["counters"]["grad_gathers"] == [2 * (4 * cfg.num_blocks + 1)]
 
 
 @pytest.fixture
