@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import StageSpec
+from .segment import head_positions
 
 
 class PoolMap(NamedTuple):
@@ -66,12 +67,9 @@ def pool_map(coords: torch.Tensor, valid: torch.Tensor, stage: StageSpec,
     count = torch.clamp(new.long().sum(), max=N1)
     live = s_valid & (parent < N1)
 
-    pos = torch.arange(N0, device=dev)
-    heads = torch.sort(torch.where(new, pos, torch.full_like(pos, N0))).values
-    if N0 < N1:
-        heads = torch.cat([heads, heads.new_full((N1 - N0,), N0)])
+    heads = head_positions(new, N1)
     pvalid = torch.arange(N1, device=dev) < count
-    first = torch.where(pvalid, heads[:N1], torch.zeros_like(heads[:N1]))
+    first = torch.where(pvalid, heads, torch.zeros_like(heads))
     pcell = torch.where(pvalid, s_cell[first], torch.zeros_like(first))
     nxt_coords = torch.stack([pcell // (gx * gy), (pcell // gx) % gy,
                               pcell % gx], dim=-1)

@@ -87,6 +87,23 @@ def flops(rows: int, C: int) -> int:
     return rows * C
 
 
+def head_positions(is_head: torch.Tensor, length: int) -> torch.Tensor:
+    """Positions of the set flags of ``is_head`` [N] in order, then N as the
+    sentinel, cut or padded to ``length``: int64 on the flags' device.
+
+    Compacts segment heads into segment order for the voxelizer's pillars,
+    the partition's windows and the pooling's parents.  The size is
+    ``length`` whatever the flags hold, and nothing is read on the host, so
+    a CUDA graph captures it."""
+    n = is_head.numel()
+    pos = torch.arange(n, device=is_head.device)
+    heads = torch.sort(torch.where(is_head, pos,
+                                   torch.full_like(pos, n))).values
+    if n < length:
+        heads = torch.cat([heads, heads.new_full((length - n,), n)])
+    return heads[:length]
+
+
 def segmented_max(feats: torch.Tensor, is_start: torch.Tensor, cap: int,
                   starts_only: bool = False) -> torch.Tensor:
     """Kernel B3 on a CUDA tensor, the plain version on a CPU tensor."""

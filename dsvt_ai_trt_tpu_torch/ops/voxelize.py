@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..config import DSVTConfig
+from .segment import head_positions
 
 
 def cell_edges(vmin: float, vsize: float, n: int, device) -> torch.Tensor:
@@ -196,13 +197,9 @@ def voxelize(points: torch.Tensor, num_points, cfg: DSVTConfig) -> Pillars:
     cnt_row = (rank_c + rank_rev + 1).float()
     m = torch.stack(streams, dim=-1) / torch.clamp(cnt_row[:, None], min=1.0)
 
-    # pillar registry: head positions compact to pillar order by one sort;
-    # counts are segment extents
-    starts_all = torch.sort(torch.where(new_pillar, pos,
-                                        torch.full_like(pos, P1))).values
-    if starts_all.shape[0] < P + 1:
-        starts_all = torch.cat([starts_all, starts_all.new_full(
-            (P + 1 - starts_all.shape[0],), P1)])
+    # pillar registry: head positions in pillar order; counts are segment
+    # extents
+    starts_all = head_positions(new_pillar, P + 1)
     n_rows = s_valid.long().sum()
     starts_c = starts_all[:P].clamp(0, P1 - 1)
     ends_c = (torch.minimum(starts_all[1:P + 1], n_rows) - 1).clamp(0, P1 - 1)

@@ -30,6 +30,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..config import DSVTConfig, WindowSpec
+from .segment import head_positions
 
 NEG_MASK = torch.finfo(torch.float32).min   # -3.4028235e38, exact in f32
 
@@ -133,11 +134,9 @@ def set_partition(part: WindowPartition, pillar_valid: torch.Tensor,
     W = min(P, nw[0] * nw[1] * nw[2])
     win_rank_safe = torch.where(s_valid & (win_rank < W), win_rank,
                                 torch.full_like(win_rank, W))
-    # (start, size) from segment extents: heads sort into window-rank order;
+    # (start, size) from segment extents: heads in window-rank order, with
     # two trailing sentinels because the slices reach starts_w[W + 1]
-    starts_w = torch.cat([
-        torch.sort(torch.where(new_win, pos, torch.full_like(pos, P))).values,
-        pos.new_full((2,), P)])                                       # [P + 2]
+    starts_w = head_positions(new_win, P + 2)                         # [P + 2]
     n_valid_rows = s_valid.long().sum()
     win_start = starts_w[:W + 1]
     nxt_start = starts_w[1:W + 2]

@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401  (one torch thread: see tests/torch_cpu.py)
+
 from dsvt_ai_trt_tpu.ops.attention import set_attention_qkv as jax_attn
 from dsvt_ai_trt_tpu.ops.attention_pallas import set_attention_fused_flat
 from dsvt_ai_trt_tpu_torch.ops.attention import set_attention_qkv

@@ -24,6 +24,8 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+import torch_cpu  # noqa: F401  (one torch thread: see tests/torch_cpu.py)
+
 from conftest import make_cloud, tiny_config
 
 from dsvt_ai_trt_tpu_torch import data, weights

@@ -24,6 +24,8 @@ import sys
 import numpy as np
 import pytest
 
+import torch_cpu  # noqa: F401  (one torch thread: see tests/torch_cpu.py)
+
 from conftest import make_cloud, tiny_config
 from test_golden import GOLDEN_TINY, _assert_boxes
 

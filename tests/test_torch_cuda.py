@@ -40,6 +40,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401  (one torch thread: see tests/torch_cpu.py)
+
 from dsvt_ai_trt_tpu_torch import kernels, weights
 from dsvt_ai_trt_tpu_torch.config import DSVTConfig, WindowSpec
 from dsvt_ai_trt_tpu_torch.ops import attention_kernel as ak

@@ -14,6 +14,8 @@ at all.  Thresholds 0.5 and 0.1, and 0.0, where any overlap covers.
 import numpy as np
 import pytest
 
+import torch_cpu  # noqa: F401  (one torch thread: see tests/torch_cpu.py)
+
 from dsvt_ai_trt_tpu.eval import coverage as jax_coverage
 from dsvt_ai_trt_tpu_torch.eval import coverage
 from dsvt_ai_trt_tpu_torch.io.host_nms import _corners

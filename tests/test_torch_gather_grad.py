@@ -25,6 +25,8 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+import torch_cpu  # noqa: F401  (one torch thread: see tests/torch_cpu.py)
+
 from conftest import make_cloud, tiny_config
 
 from dsvt_ai_trt_tpu_torch import data, weights
@@ -38,14 +40,7 @@ SCENE = dict(n_objects=2, n_ground=200, pts_per_obj=30)
 ACCUMULATING = ("index_put", "index_put_", "_index_put_impl_")
 
 
-@pytest.fixture(autouse=True)
-def one_thread():
-    """Each test on one intra-op thread: the summation order the gradient
-    test holds, and the tiny shapes gain nothing from more."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
+# The gradient test's serial summation order rests on torch_cpu's one thread.
 
 
 class _Ops(TorchDispatchMode):

@@ -51,6 +51,8 @@ import pytest
 import torch
 from jax.sharding import Mesh
 
+import torch_cpu  # noqa: F401  (one torch thread: see tests/torch_cpu.py)
+
 from conftest import make_cloud, tiny_config
 from test_golden import _assert_boxes
 

@@ -22,6 +22,8 @@ import uuid
 import numpy as np
 import pytest
 
+import torch_cpu  # noqa: F401  (one torch thread: see tests/torch_cpu.py)
+
 import oracles
 from dsvt_ai_trt_tpu.io import host_nms as jax_host_nms
 from dsvt_ai_trt_tpu.io.pointcloud import load_bin as jax_load_bin

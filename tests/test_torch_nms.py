@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401  (one torch thread: see tests/torch_cpu.py)
+
 from dsvt_ai_trt_tpu.ops.nms import box_corners as jax_box_corners
 from dsvt_ai_trt_tpu.ops.nms import nms as jax_nms
 from dsvt_ai_trt_tpu.ops.nms import pairwise_overlap_clip as jax_clip

@@ -38,6 +38,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401  (one torch thread: see tests/torch_cpu.py)
+
 from dsvt_ai_trt_tpu_torch import kernels, weights
 from dsvt_ai_trt_tpu_torch.bench import entry_frame
 from dsvt_ai_trt_tpu_torch.config import DEFAULT_CONFIG
@@ -173,21 +175,25 @@ def anchor(tmp_path_factory):
     from tools import torch_oracle
 
     device = "cuda" if torch.cuda.is_available() else "cpu"
+    threads = torch.get_num_threads()
     torch.set_num_threads(os.cpu_count() or 4)
-    cfg = dataclasses.replace(DEFAULT_CONFIG, precision="fp32",
-                              parity_atan=True)
-    frames = {name: entry_frame(cfg, n, seed, half_extent=h)
-              for name, (n, seed, h) in FRAMES.items()}
-    params, model = setup(torch_oracle, cfg, frames,
-                          str(tmp_path_factory.mktemp("oracle")), device)
-    boxes_o, seconds = {}, {}
-    for name, (pts, n) in frames.items():
-        t0 = time.perf_counter()
-        boxes_o[name] = oracle_boxes(torch_oracle, model, pts, n)
-        seconds[name] = time.perf_counter() - t0
-    return {"oracle": torch_oracle, "cfg": cfg, "frames": frames,
-            "params": params, "boxes_o": boxes_o, "device": device,
-            "oracle_seconds": seconds}
+    try:
+        cfg = dataclasses.replace(DEFAULT_CONFIG, precision="fp32",
+                                  parity_atan=True)
+        frames = {name: entry_frame(cfg, n, seed, half_extent=h)
+                  for name, (n, seed, h) in FRAMES.items()}
+        params, model = setup(torch_oracle, cfg, frames,
+                              str(tmp_path_factory.mktemp("oracle")), device)
+        boxes_o, seconds = {}, {}
+        for name, (pts, n) in frames.items():
+            t0 = time.perf_counter()
+            boxes_o[name] = oracle_boxes(torch_oracle, model, pts, n)
+            seconds[name] = time.perf_counter() - t0
+        yield {"oracle": torch_oracle, "cfg": cfg, "frames": frames,
+               "params": params, "boxes_o": boxes_o, "device": device,
+               "oracle_seconds": seconds}
+    finally:
+        torch.set_num_threads(threads)
 
 
 def _port(anchor, name, with_nms):

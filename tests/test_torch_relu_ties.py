@@ -30,6 +30,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+import torch_cpu  # noqa: F401  (one torch thread: see tests/torch_cpu.py)
+
 from conftest import tiny_config
 
 from dsvt_ai_trt_tpu import data as jax_data

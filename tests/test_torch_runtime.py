@@ -24,6 +24,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401  (one torch thread: see tests/torch_cpu.py)
+
 from conftest import make_cloud
 from conftest import tiny_config as jax_tiny_config
 

@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401  (one torch thread: see tests/torch_cpu.py)
+
 from conftest import make_cloud, tiny_config
 
 from dsvt_ai_trt_tpu import weights as jax_weights
@@ -130,6 +132,39 @@ def test_segmented_max_cuda_checks_arguments_first(bad):
         else:
             segment.segmented_max_cuda(feats, is_start.float(), 8)
     assert kernels.counts() == before
+
+
+def _heads_inline(flags, length):
+    """The compaction the voxelizer, the partition and the pooling each
+    wrote inline: sort the flagged positions to the front, the sentinel
+    ``numel`` behind them, then pad with the sentinel or cut to ``length``."""
+    n = flags.numel()
+    pos = torch.arange(n)
+    heads = torch.sort(torch.where(flags, pos, torch.full_like(pos, n))).values
+    if heads.shape[0] < length:
+        heads = torch.cat([heads, heads.new_full((length - n,), n)])
+    return heads[:length]
+
+
+@pytest.mark.parametrize("flags", ["random", "none", "all", "empty"])
+@pytest.mark.parametrize("extra", [-3, 0, 2])
+def test_head_positions_matches_the_inline_compaction(flags, extra):
+    """``head_positions`` equals the inline form bit for bit, and both are
+    the flagged positions in order then the sentinel, with ``length``
+    below, at and above the flags' count."""
+    n = 0 if flags == "empty" else 200
+    if flags == "random":
+        is_head = torch.from_numpy(np.random.default_rng(5).random(n) < 0.3)
+    else:
+        is_head = torch.full((n,), flags == "all", dtype=torch.bool)
+    length = max(n + extra, 0)
+    got = segment.head_positions(is_head, length)
+    assert got.dtype == torch.int64 and got.shape == (length,)
+    assert torch.equal(got, _heads_inline(is_head, length))
+    want = np.full(length, n)
+    flagged = np.flatnonzero(is_head.numpy())[:length]
+    want[:len(flagged)] = flagged
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def _vfe_inputs(seed, n_points):

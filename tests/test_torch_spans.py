@@ -25,6 +25,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401  (one torch thread: see tests/torch_cpu.py)
+
 from dsvt_ai_trt_tpu import weights as jax_weights
 from dsvt_ai_trt_tpu_torch import weights
 from dsvt_ai_trt_tpu_torch.data import synthetic_batch

@@ -16,6 +16,8 @@ import json
 import numpy as np
 import pytest
 
+import torch_cpu  # noqa: F401  (one torch thread: see tests/torch_cpu.py)
+
 from conftest import tiny_config
 
 from dsvt_ai_trt_tpu_torch import bench, heading_probe, parity

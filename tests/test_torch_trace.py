@@ -21,6 +21,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401  (one torch thread: see tests/torch_cpu.py)
+
 from dsvt_ai_trt_tpu import weights as jax_weights
 from dsvt_ai_trt_tpu_torch import kernels, weights
 from dsvt_ai_trt_tpu_torch.model.detector import STAGES, forward

@@ -32,6 +32,8 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+import torch_cpu  # noqa: F401  (one torch thread: see tests/torch_cpu.py)
+
 from conftest import make_cloud, tiny_config
 from test_golden import _assert_boxes
 
@@ -45,18 +47,6 @@ from dsvt_ai_trt_tpu_torch.parallel.training import (
 from dsvt_ai_trt_tpu_torch.runtime.compile import Engine, SyncGuard
 
 SCENE = dict(n_objects=2, n_ground=200, pts_per_obj=30)
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """Each test on one intra-op thread: the tiny shapes gain nothing from
-    more, and a suite run in parallel processes oversubscribes the cores
-    (four copies of this file took 28 s each on one thread, 850 s each on
-    eight)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _params(seed=0):

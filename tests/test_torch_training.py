@@ -31,6 +31,8 @@ import optax
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401  (one torch thread: see tests/torch_cpu.py)
+
 from conftest import make_cloud, tiny_config
 
 from dsvt_ai_trt_tpu import data as jax_data

@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401  (one torch thread: see tests/torch_cpu.py)
+
 from conftest import make_cloud, tiny_config
 
 from dsvt_ai_trt_tpu.ops.voxelize import voxelize as jax_voxelize

@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401  (one torch thread: see tests/torch_cpu.py)
+
 from conftest import tiny_config
 
 from dsvt_ai_trt_tpu import weights as jax_weights
