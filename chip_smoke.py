@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. build the seven CUDA kernels (the five of the pillar model's main
-     path, the staged model's pooling and the tracer's stage mark) from ``dsvt_ai_trt_tpu_torch/csrc`` (one
+  1. build the eight CUDA kernels (the five of the pillar model's main
+     path, the BEV laterals' epilogue, the staged model's pooling and the
+     tracer's stage mark) from ``dsvt_ai_trt_tpu_torch/csrc`` (one
      ``nvcc`` each, all at once) and print the build seconds;
   2. print the card's name and power limit;
   3. run ``Engine`` at ``DEFAULT_CONFIG`` width with ``precision="bf16"`` and
@@ -15,9 +16,10 @@ Phases (any failure exits non-zero):
      seed): each frame is one replay of the CUDA graph the engine captured
      at warm-up; print boxes, occupancy and ms per frame (CUDA events,
      after warm-up);
-  4. check the launch counters rose by exactly 2 / 8 / 8 / 1 / 1 per frame
-     (segment_max / set_attention / encoder_epilogue / rotated_overlap /
-     nms_peel; a replay counts what its capture recorded);
+  4. check the launch counters rose by exactly 2 / 8 / 8 / 1 / 1 / 3 per
+     frame (segment_max / set_attention / encoder_epilogue /
+     rotated_overlap / nms_peel / bev_epilogue; a replay counts what its
+     capture recorded);
   5. run the same frames through the eager forward (``Engine.eager``):
      its outputs equal the replays' bit for bit, and it records the
      kernels' inputs (a replay calls no Python); profile one frame's
@@ -37,7 +39,7 @@ Phases (any failure exits non-zero):
      (``device_ms``); for B3 and B4 also every device kernel of one wrapper
      call (``wrapper_device_ms``); B3 also on a seeded stream of 1..48-row
      segments (real clouds' pillars), B2 also at 1, 132 and 264 tiles of 64
-     rows;
+     rows; bev_epilogue bit-equal on the first frame's three laterals;
   5b. graph (``check_graph``): one eager kernel-path frame under
      ``torch.cuda.set_sync_debug_mode("error")`` (no synchronisation);
      engines with and without NMS at ``DEFAULT_CONFIG`` and at
@@ -211,9 +213,10 @@ BF16_FLOPS = 989e12                # dense tensor-core bf16
 F32_FLOPS = 67e12                  # f32 outside the tensor cores
 PER_FRAME = {"segment_max": 2, "set_attention": 8, "encoder_epilogue": 8,
              "rotated_overlap": 1, "nms_peel": 1}
-# what a frame launches with the tracer off: the graph holds no stage mark,
-# and a pillar model pools nothing between stages
-LAUNCHES = {**PER_FRAME, "stage_mark": 0, "stage_pool": 0}
+# what a bf16 frame launches with the tracer off: the graph holds no stage
+# mark, a pillar model pools nothing between stages, and the three laterals
+# of the BEV ResNet take bev_epilogue (fp32, mixed and sp take none)
+LAUNCHES = {**PER_FRAME, "stage_mark": 0, "stage_pool": 0, "bev_epilogue": 3}
 # a dsvt-voxel-waymo frame: four stages of one block (8 encoders), B3 in
 # the VFE (2) and in each of the 3 poolings' max, stage_pool in each
 VOXEL_LAUNCHES = {**LAUNCHES, "segment_max": 2 + 3, "stage_pool": 3}
@@ -226,6 +229,7 @@ SYMBOLS = {                        # the __global__ function(s) of each kernel
     "encoder_epilogue": "encoder_epilogue_kernel",
     "rotated_overlap": "rotated_overlap_kernel",
     "nms_peel": "nms_peel_kernel",
+    "bev_epilogue": "bev_epilogue_kernel",
 }
 REPLACES = {
     "segment_max": "dsvt_ai_trt_tpu/ops/segment_pallas.py:125",
@@ -234,6 +238,7 @@ REPLACES = {
     "rotated_overlap": "dsvt_ai_trt_tpu/ops/nms_pallas.py:116",
     "nms_peel": "dsvt_ai_trt_tpu/ops/nms.py:298",   # XLA's lax.while_loop
     "stage_pool": None,   # the JAX package has no staged backbone
+    "bev_epilogue": None,  # XLA fused the laterals' bias, ReLU and concat
 }
 NMS_REPS = (200, 20)               # host NMS timings: native, NumPy route
 GOLDEN_TINY = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -393,8 +398,8 @@ class Recorder:
     wrapper, so it records an eager pass (``Engine.eager``), whose outputs
     ``run_main_path`` holds equal to the replays' bit for bit."""
 
-    def __init__(self, names=tuple(PER_FRAME), first_only=False):
-        from dsvt_ai_trt_tpu_torch.model import backbone3d
+    def __init__(self, names=(*PER_FRAME, "bev_epilogue"), first_only=False):
+        from dsvt_ai_trt_tpu_torch.model import backbone2d, backbone3d
         from dsvt_ai_trt_tpu_torch.ops import (attention_kernel, encoder_kernel,
                                                nms, segment)
         self.calls = {name: [] for name in names}
@@ -407,6 +412,7 @@ class Recorder:
             (nms, "pairwise_overlap", "rotated_overlap"),
             (nms, "nms_peel", "nms_peel"),
             (backbone3d, "stage_pool", "stage_pool"),
+            (backbone2d, "bev_epilogue", "bev_epilogue"),
         ) if p[2] in names]
         self._orig = []
 
@@ -770,6 +776,48 @@ def check_encoder_epilogue(recorder, frame):
             "bound_by": by, "bytes": nbytes, "ops": ops,
             "device_ms_by_rows": scaling, "P": P, "C": C, "F": Fd,
             "max_abs_err": float((got - ref).abs().max())}
+
+
+def check_bev_epilogue(recorder, frame):
+    """Kernel bev_epilogue vs its plain version on the three laterals of
+    ``frame``: bit-equal (f32 sum, one rounding, the ReLU); timed as the
+    frame's three launches together."""
+    import torch
+    from dsvt_ai_trt_tpu_torch.ops import bev_epilogue as be
+    calls = [(args, kw) for fr, args, kw in recorder.calls["bev_epilogue"]
+             if fr == frame][:3]
+    check(len(calls) == 3, f"bev_epilogue: {len(calls)} calls recorded on "
+          f"{frame}, expected 3")
+    pairs = []
+    for args, _kw in calls:
+        y, bias, out = args[:3]
+        _n, c, h, w = y.shape
+        maps = [torch.empty((1, out.stride(3), h, w), dtype=y.dtype,
+                            device=y.device,
+                            memory_format=torch.channels_last)
+                for _ in range(2)]
+        got = be.bev_epilogue_cuda(y, bias, maps[0][:, :c])
+        ref = be.bev_epilogue_plain(y, bias, maps[1][:, :c])
+        check(torch.equal(got, ref), f"bev_epilogue differs from its plain "
+              f"version on {frame}, lateral {tuple(y.shape)}")
+        pairs.append((y, bias, maps[0][:, :c], maps[1][:, :c]))
+
+    def run(fn, which):
+        for p in pairs:
+            fn(p[0], p[1], p[which])
+
+    t_k = cuda_ms(lambda: run(be.bev_epilogue_cuda, 2))
+    t_p = cuda_ms(lambda: run(be.bev_epilogue_plain, 3))
+    t_d, how = device_ms(lambda: run(be.bev_epilogue_cuda, 2),
+                         SYMBOLS["bev_epilogue"])
+    elems = sum(p[0].numel() for p in pairs)
+    nbytes = 2 * elems * 2            # y read and the slice written, bf16
+    b, by = bound_ms(nbytes, 2 * elems, F32_FLOPS)
+    return {"ms": t_k, "device_ms": t_d, "device_ms_by": how,
+            "plain_ms": t_p, "library_ms": None, "bound_ms": b,
+            "bound_by": by, "bytes": nbytes, "ops": 2 * elems,
+            "laterals": [list(p[0].shape) for p in pairs],
+            "max_abs_err": 0.0}
 
 
 def check_rotated_overlap(recorder, frames_to_check):
@@ -1818,16 +1866,18 @@ def check_multi(engine, frames):
     out = {"world": 2, "transport": "gloo, host copies", "seconds": seconds,
            "note": "two processes sharing one card, not a multi-GPU speed"}
 
-    def want(frames_per_rank, kernels_on=tuple(PER_FRAME)):
+    def want(frames_per_rank, kernels_on=(*PER_FRAME, "bev_epilogue")):
         return {k: (v * frames_per_rank if k in kernels_on else 0)
                 for k, v in LAUNCHES.items()}
 
-    # per rank: 2/8/8/1/1 a frame, eager and graph; sp at fp32 takes B3,
-    # B4 and nms_peel only (B1 and B2 are the bf16/mixed path's); the train
-    # steps launch none
+    # per rank: 2/8/8/1/1 a frame, eager and graph, and the laterals'
+    # bev_epilogue 3 where the BEV stack is whole; sp at fp32 takes B3, B4
+    # and nms_peel only (B1 and B2 are the bf16/mixed path's), sp at bf16
+    # no bev_epilogue (its rows carry halos); the train steps launch none
     expect = {"dp": want(1), "mp_bf16": want(3),
               "sp_fp32": want(1, ("segment_max",) + NMS_KERNELS),
-              "sp_bf16": want(3), "dp_train": want(0), "mp_train": want(0)}
+              "sp_bf16": want(3, tuple(PER_FRAME)), "dp_train": want(0),
+              "mp_train": want(0)}
     # segments a replay: 1 + the breaks a frame (a step) the CPU tests pin
     # (the per-frame engines replay one frame; dp's batch engine at mp = 1
     # breaks at no collective; the steps take batch 2 with remat: dp at
@@ -2039,7 +2089,9 @@ def check_mixed(frames):
     cfg = dataclasses.replace(DEFAULT_CONFIG, precision="mixed")
     engine = Engine(weights.random_params(cfg, 0), cfg)
     records, counts, recorder = run_main_path(engine, frames)
+    # mixed runs the BEV epilogues in f32 PyTorch ops: no bev_epilogue
     want = {k: v * len(frames) for k, v in LAUNCHES.items()}
+    want["bev_epilogue"] = 0
     check(counts == want, f"mixed launch counts {counts} != {want}")
     for rec in records.values():
         check(rec["finite"] and rec["shape"] == [cfg.top_k, 9],
@@ -2244,12 +2296,13 @@ def _main(torch) -> int:
         "nms_peel": check_nms_peel(
             recorder, list(frames), cfg.top_k,
             prof["stages"].get("nms", {}).get("device_busy_ms")),
+        "bev_epilogue": check_bev_epilogue(recorder, "dense_seed0"),
     }
     for name, res in results.items():
         # the same kernels' device ms in the profiled frame, per launch
         # there (B3: its two calls together, as in "ms" and "device_ms")
         seen = prof["kernels"][name]
-        in_frame = (seen["ms"] if name == "segment_max"
+        in_frame = (seen["ms"] if name in ("segment_max", "bev_epilogue")
                     else seen["ms"] / max(seen["calls"], 1))
         log({"phase": "kernel", "name": name, "kernel_ms": res["ms"],
              "frame_profile_ms": in_frame,
@@ -2286,7 +2339,7 @@ def _main(torch) -> int:
     # three launches together)
     results["stage_pool"] = voxel["stage_pool"]
     counts = {**counts, "stage_pool": voxel["launches"]["stage_pool"]}
-    named = (*PER_FRAME, "stage_pool")
+    named = (*PER_FRAME, "stage_pool", "bev_epilogue")
     sources = {name: "dsvt_ai_trt_tpu_torch/csrc/" + kernels.SPECS[name][0]
                for name in named}
     line = {"kernels": [{

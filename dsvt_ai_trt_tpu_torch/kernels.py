@@ -62,6 +62,8 @@ SPECS = {
     "stage_mark": ("stage_mark.cu", "dsvt_stage_mark", [_P, _I, _P]),
     "stage_pool": ("stage_pool.cu", "dsvt_stage_pool",
                    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "bev_epilogue": ("bev_epilogue.cu", "dsvt_bev_epilogue",
+                     [_P, _P, _P, _I, _I, _I, _P]),
 }
 
 ARCH = "sm_90a"

@@ -18,12 +18,18 @@ label, STAGES), so a profiler trace splits a frame's time by stage and
 ``runtime.profiler.count_flops`` counts FLOPs by stage; outside a profiler
 the labels cost a few microseconds per frame.  With the port's tracer on
 (``runtime.profiler.enable_spans``), each stage's entry is also a device
-stage mark, and the frame's occupancy, count of boxes before NMS and
-``bev_restrides`` go to its counters.  ``bev_restrides`` is the number of
-tensors the BEV ResNet and the head copy into their layout on a frame
-(``ops.layout.laid_out``), counted on the host as the frame is traced or
-captured: 0 on the bf16 and mixed paths of an ``Engine`` (its conv weights
-folded, ``weights.fold_convs``), 1 at fp32 (the entry to NCHW).
+stage mark, and the frame's occupancy, count of boxes before NMS,
+``bev_restrides`` and ``bev_fused_convs`` go to its counters.
+``bev_restrides`` is the number of tensors the BEV ResNet and the head
+copy into their layout on a frame (``ops.layout.laid_out``), counted on
+the host as the frame is traced or captured: 0 on the bf16 and mixed
+paths of an ``Engine`` (its conv weights folded, ``weights.fold_convs``),
+1 at fp32 (the entry to NCHW).
+``bev_fused_convs``, counted the same way, is the number of the stack's
+convs that finished their bias, residual add and ReLU inside cuDNN's pass
+(``backbone2d.fuses_epilogue``): 18 on a bf16 frame on the card (16 in the
+residual units, the head's two hidden convs), 0 at fp32 and mixed, on the
+CPU and under spatial sharding; a training step's record reads it too, 0.
 
 ``forward_batch`` is the per-frame stacked form that the JAX package's
 vmap computes (the form data parallelism runs on each dp rank,
@@ -64,7 +70,7 @@ from ..parallel import spatial
 from ..parallel.spatial import spatial_sharding
 from ..runtime import profiler
 from ..runtime.profiler import stage_scope
-from .backbone2d import backbone2d_forward
+from .backbone2d import backbone2d_forward, fused_convs
 from .backbone3d import staged_forward
 from .head import head_forward
 from .vfe import vfe_forward
@@ -174,13 +180,14 @@ def forward(params: Dict, points, num_points, cfg: DSVTConfig,
             feats = feats.to(torch.bfloat16)
         bev = map_to_bev(feats, *_bev_input(stages),
                          (cfg.grid_size[1], cfg.grid_size[0]))
-    restrides = layout.restrides()
+    restrides, fused = layout.restrides(), fused_convs()
     with stage_scope("backbone2d"):
         bev = backbone2d_forward(bev, params["backbone2d"], precision)
     with stage_scope("head"):
         head_out = head_forward(bev, params["head"], precision, cfg,
                                 lazy=True)
     profiler.counter("bev_restrides", layout.restrides() - restrides)
+    profiler.counter("bev_fused_convs", fused_convs() - fused)
     with stage_scope("decode"):
         dets = decode_and_filter(head_out, cfg, head_params=params["head"])
     profiler.counter("boxes_before_nms", dets.count)

@@ -13,7 +13,10 @@ is a plain 3x3 conv with padding 1, in the layout of model/backbone2d.py
 (ops/layout.py): NHWC for bf16 convs, so the NHWC 384-channel map of the
 backbone enters with no data moved, NCHW for fp32.  The full head's six
 branches read 64-channel slices of one hidden map: NCHW slices are dense,
-NHWC ones are copied (``layout.laid_out``; the lazy head has none).
+NHWC ones are copied (``layout.laid_out``; the lazy head has none).  The
+hidden convs take their bias and ReLU inside cuDNN's pass where the
+backbone's convs do (``backbone2d.conv_relu``); the final convs, of 1-10
+channels, keep PyTorch's bias add.
 
 Inside ``parallel.spatial.spatial_sharding`` the convs run on this rank's
 rows with halos (model/backbone2d.py:conv) and every output map is then
@@ -28,10 +31,9 @@ from typing import Dict
 import torch
 
 from ..config import DSVTConfig, HEAD_BRANCHES, head_branches
-from ..ops.common import relu
 from ..parallel import spatial
 from ..ops.layout import to_hwc, to_nchw
-from .backbone2d import BF16, conv
+from .backbone2d import BF16, conv, conv_relu
 
 
 def head_forward(features: torch.Tensor, params: dict,
@@ -47,10 +49,9 @@ def head_forward(features: torch.Tensor, params: dict,
                          "map's rows, for the gather)")
 
     x = to_nchw(features)
-    shared = relu(conv(x, params, "shared_w", "shared_b", 1, precision))
+    shared = conv_relu(x, params, "shared_w", "shared_b", 1, precision)
     if lazy:
-        hm_hidden = relu(conv(shared, params["hm"], "w0", "b0", 1,
-                              precision))
+        hm_hidden = conv_relu(shared, params["hm"], "w0", "b0", 1, precision)
         hm = conv(hm_hidden, params["hm"], "w1", "b1", 1, precision)
         return {"hm": spatial.gather_rows(to_hwc(hm), rows),
                 "shared": spatial.gather_rows(to_hwc(shared), rows)}
@@ -62,7 +63,7 @@ def head_forward(features: torch.Tensor, params: dict,
             if k in params[branches[0][0]]]
     merged = {k: torch.cat([params[n][k] for n, _ in branches], dim=0)
               for k in keys}
-    hidden = relu(conv(shared, merged, "w0", "b0", 1, precision))
+    hidden = conv_relu(shared, merged, "w0", "b0", 1, precision)
     out = {}
     for i, (name, _c) in enumerate(branches):
         h = hidden[:, i * hidden_c:(i + 1) * hidden_c]

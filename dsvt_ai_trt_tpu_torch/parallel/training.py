@@ -73,6 +73,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import kernels
 from ..config import DSVTConfig
+from ..model.backbone2d import fused_convs
 from ..model.detector import float_stages, forward_train, partition_frame
 from ..ops.common import resolve_device
 from ..ops.gather import grad_gathers
@@ -305,11 +306,12 @@ def make_train_step(cfg: DSVTConfig, params, optimizer=None,
             points, num_points = points[rows], num_points[rows]
             targets = Targets(*(t[rows] for t in targets))
         optimizer.zero_grad(set_to_none=True)
-        gathers = grad_gathers()
+        gathers, fused = grad_gathers(), fused_convs()
         loss = batched_loss(params, points, num_points, targets, cfg,
                             remat=remat, dir_weight=dir_weight,
                             aux_weight=aux_weight, device=device, tp=tp)
         profiler.counter("grad_gathers", grad_gathers() - gathers)
+        profiler.counter("bev_fused_convs", fused_convs() - fused)
         profiler.mark("backward")
         loss.backward()
         profiler.mark("optimizer")

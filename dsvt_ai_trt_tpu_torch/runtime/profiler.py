@@ -14,7 +14,10 @@ runtime/profiler.py).
   The formulas count what the counter counts for the plain versions (the
   products of B1 and B2) and the compares of B3 and B4, so an MFU means
   nearly the same work whichever version ran (B1's formula counts live
-  sets only; B3's and B4's compares are a few MFLOP of a frame).
+  sets only; B3's and B4's compares are a few MFLOP of a frame).  The
+  counter has no formula for cuDNN's fused conv + bias (+ add) + ReLU
+  (model/backbone2d.py); ``_fused_conv_flop`` gives it the conv's, so the
+  fused and the plain BEV stack count the same FLOPs.
 * ``device_peak_flops`` reads the card's name.
 
 The tracer is off by default.  ``enable_spans()`` switches it on; call it
@@ -45,9 +48,9 @@ replay), "eager" (the forward or step op by op) or "host" (a warm-up):
   ``occupancy`` (kept points, pillars, live sets per window spec) and
   ``boxes_before_nms``, one entry a frame; and one the host counts as the
   forward is traced or captured, written into the buffer as a constant:
-  ``bev_restrides`` (model/detector.py); a step's one, ``grad_gathers``
-  (the row gathers its forward ran as ``index_select``, ops/gather.py;
-  parallel/training.py).
+  ``bev_restrides`` and ``bev_fused_convs`` (model/detector.py; the second
+  a step's too, 0); a step's ``grad_gathers`` (the row gathers its forward
+  ran as ``index_select``, ops/gather.py; parallel/training.py).
 
 Right after a replay the owner enqueues one copy of its marks buffer into
 a ring of ``RING`` page-locked host slots, on the stream of the result's
@@ -91,7 +94,8 @@ from typing import (Callable, ContextManager, Dict, List, NamedTuple,
 
 import torch
 from torch.profiler import record_function
-from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.flop_counter import (FlopCounterMode, conv_flop_count,
+                                      register_flop_formula)
 
 from .. import kernels
 
@@ -120,6 +124,14 @@ def _hooked(scope: Callable[[str], ContextManager]):
         yield
     finally:
         _scopes.remove(scope)
+
+
+@register_flop_formula([torch.ops.aten.cudnn_convolution_relu,
+                        torch.ops.aten.cudnn_convolution_add_relu])
+def _fused_conv_flop(x_shape, w_shape, *args, out_shape=None, **kwargs):
+    """The FLOPs of the conv inside a fused cuDNN call: the epilogue, like
+    every elementwise op, counts none."""
+    return conv_flop_count(x_shape, w_shape, out_shape, transposed=False)
 
 
 class FlopCount(NamedTuple):

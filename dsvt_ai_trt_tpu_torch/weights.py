@@ -569,17 +569,24 @@ def from_jax_params(params: Dict, device="cuda"):
 def fold_convs(params: Dict) -> Dict:
     """Add to a whole model the copies of its BEV ResNet's and head's conv
     weights that the bf16 and mixed convs read (``model.backbone2d.fold``:
-    bf16 channels_last weight and bf16 bias, keys ending ``_bf16``), where
-    they are missing.  ``runtime.compile.Engine`` calls it at those
-    precisions; ``refold`` keeps the copies in step with the leaves."""
+    bf16 channels_last weight and bf16 bias, keys ending ``_bf16``), and
+    the fused second convs' biases of the units with a down conv
+    (``fold_shortcut_bias``), where they are missing.
+    ``runtime.compile.Engine`` calls it at those precisions; ``refold``
+    keeps the copies in step with the leaves."""
     import torch
-    from .model.backbone2d import BF16, conv_nodes, fold  # local: cycle
+    from .model.backbone2d import (BF16, SHORTCUT_B, conv_nodes, fold,
+                                   fold_shortcut_bias,
+                                   shortcut_units)  # local: cycle
 
     with torch.no_grad():
         for node, w_key, b_key in list(conv_nodes(params)):
             if w_key + BF16 not in node:
                 node[w_key + BF16], node[b_key + BF16] = fold(node[w_key],
                                                               node[b_key])
+        for unit in shortcut_units(params):
+            if SHORTCUT_B not in unit:
+                unit[SHORTCUT_B] = fold_shortcut_bias(unit)
     return params
 
 
@@ -588,15 +595,16 @@ def refold(params: Dict) -> Dict:
     without autograd: every encoder pass's (``model.backbone3d.
     fold_encoder``: packed q/k/v projections and their bf16 copies, kernel
     B2's bf16 weights and stacked LayerNorm vectors), every pooling's
-    (``fold_pool``) and the BEV convs' bf16 copies that ``fold_convs``
-    made.  Run it after every change to
+    (``fold_pool``) and the BEV convs' bf16 copies and summed biases that
+    ``fold_convs`` made.  Run it after every change to
     the leaves: the inference path reads only the derived copies of those
     weights.  A derived weight that exists is written in place, so a CUDA
     graph that captured its address (an ``Engine``'s, a compiled training
     step's) reads the new values; a missing encoder weight is added."""
     import torch
     # local: avoids import cycles
-    from .model.backbone2d import BF16, conv_nodes, fold
+    from .model.backbone2d import (BF16, SHORTCUT_B, conv_nodes, fold,
+                                   fold_shortcut_bias, shortcut_units)
     from .model.backbone3d import fold_encoder, fold_pool
 
     with torch.no_grad():
@@ -619,6 +627,9 @@ def refold(params: Dict) -> Dict:
                 w, b = fold(node[w_key], node[b_key])
                 node[w_key + BF16].copy_(w)
                 node[b_key + BF16].copy_(b)
+        for unit in (shortcut_units(params) if "head" in params else ()):
+            if SHORTCUT_B in unit:
+                unit[SHORTCUT_B].copy_(fold_shortcut_bias(unit))
     return params
 
 

@@ -30,7 +30,10 @@ AdamW's first steps move a leaf by about lr times the sign of its
 gradient, which a rounding difference can flip where it is near 0); a
 profiled replay runs no sort-based ``indexing_backward_kernel``.
 The bf16 BEV ResNet and head at ``DEFAULT_CONFIG`` run NHWC: no cuDNN
-layout conversion, no strided copy, and ``bev_restrides`` 0.
+layout conversion, no strided copy, and ``bev_restrides`` 0; their convs
+finish bias, residual add and ReLU in their own pass (``bev_fused_convs``
+18, ``bev_epilogue`` 3 a frame), the maps within 3% of the largest
+magnitude of the unfused route's, ``bev_epilogue`` bit-exact.
 """
 
 import re
@@ -431,7 +434,8 @@ def test_graph_replay_equals_eager(dev, precision, with_nms):
     fused = 4 if precision == "bf16" else 0   # 2 blocks x 2 encoders
     want = {"segment_max": 2, "set_attention": fused,
             "encoder_epilogue": fused, "rotated_overlap": int(with_nms),
-            "nms_peel": int(with_nms), "stage_mark": 0, "stage_pool": 0}
+            "nms_peel": int(with_nms), "stage_mark": 0, "stage_pool": 0,
+            "bev_epilogue": 3 if precision == "bf16" else 0}
     assert engine.graph_launches == want
     kernels.reset_counts()
     replays = [engine(pts, n) for pts, n in frames]   # no wait between
@@ -457,7 +461,7 @@ def test_scan_graph_equals_per_frame_replays(dev):
               ((1500, 1), (600, 2), (900, 3))]
     per_frame = {"segment_max": 2, "set_attention": 4, "encoder_epilogue": 4,
                  "rotated_overlap": 1, "nms_peel": 1, "stage_mark": 0,
-                 "stage_pool": 0}
+                 "stage_pool": 0, "bev_epilogue": 3}
     assert scan.graph_launches == {k: 3 * v for k, v in per_frame.items()}
     points = np.stack([p for p, _ in frames])
     kernels.reset_counts()
@@ -684,7 +688,7 @@ def test_segmented_engine_replay_equals_eager(dev, gloo1, group):
     assert engine.graph_launches == {
         "segment_max": 2, "set_attention": 0, "encoder_epilogue": 0,
         "rotated_overlap": 1, "nms_peel": 1, "stage_mark": 0,
-        "stage_pool": 0}
+        "stage_pool": 0, "bev_epilogue": 0}
     for n, seed in ((1500, 1), (600, 2)):
         pts, n = _cloud(cfg, n, seed)
         got = engine(pts, n)
@@ -825,10 +829,13 @@ STRIDED = re.compile(r"elementwise_kernel<128, ?4\b.*(direct_copy|CUDAFunctor_ad
 def test_bev_stack_runs_nhwc_with_no_layout_conversion(dev):
     """One eager bf16 frame at ``DEFAULT_CONFIG`` under the profiler: under
     the ``backbone2d`` and ``head`` labels no cuDNN layout conversion runs,
-    no strided copy, and one strided add a conv, the bias's (PyTorch adds a
-    conv's bias after cuDNN's kernel, a broadcast over the channels that
-    its vectorised kernel does not take); the residual adds run vectorised.
-    With the tracer on, a replay's ``bev_restrides`` reads 0."""
+    no strided copy, no concatenation's copy, no vectorised residual add,
+    and one strided add, the heatmap conv's bias (PyTorch adds a conv's
+    bias after cuDNN's kernel, a broadcast over the channels that its
+    vectorised kernel does not take): every other conv finishes its bias,
+    residual add and ReLU inside cuDNN's pass, and the three laterals in
+    ``bev_epilogue``.  With the tracer on, a replay's ``bev_restrides``
+    reads 0 and ``bev_fused_convs`` 18."""
     import dataclasses
 
     from dsvt_ai_trt_tpu_torch.bench import synthetic_frames
@@ -845,13 +852,13 @@ def test_bev_stack_runs_nhwc_with_no_layout_conversion(dev):
                          (), iters=1)
     names = [o["name"] for o in prof.ops
              if o["stage"] in ("backbone2d", "head")]
-    convs = 19 + 3 + 3      # backbone2d's convs and deblocks, the lazy head
     assert [m for m in names if CONVERSION.search(m)] == []
     strided = [m for m in names if STRIDED.search(m)]
-    assert len(strided) == convs
-    assert all("CUDAFunctor_add" in m for m in strided)
-    assert sum("vectorized_elementwise_kernel" in m and "CUDAFunctor_add" in m
-               for m in names) == 8                # one a residual unit
+    assert len(strided) == 1 and "CUDAFunctor_add" in strided[0]
+    assert not [m for m in names if "vectorized_elementwise_kernel" in m
+                and "CUDAFunctor_add" in m]
+    assert not [m for m in names if "CatArray" in m]
+    assert sum("bev_epilogue_kernel" in m for m in names) == 3
     profiler.enable_spans()
     try:
         Engine(params, cfg).warmup()(pts, n)
@@ -860,3 +867,114 @@ def test_bev_stack_runs_nhwc_with_no_layout_conversion(dev):
         profiler.disable_spans()
     assert record["kind"] == "replay"
     assert record["counters"]["bev_restrides"] == [0]
+    assert record["counters"]["bev_fused_convs"] == [18]
+
+
+# the fused BEV stack against today's route (``backbone2d._on_card`` off):
+# the largest difference as a share of the map's largest magnitude
+FUSED_SHARE = 0.03
+
+
+def test_bev_stack_fuses_its_epilogues(dev, monkeypatch):
+    """``DEFAULT_CONFIG`` bf16, three seeds of weights on the frame's own
+    BEV map: the fused route's backbone features and lazy head maps within
+    ``FUSED_SHARE`` of their largest magnitude of today's route (f32 from
+    the accumulator through bias, add and ReLU, one rounding, where today's
+    rounds after the conv, the bias and the add: about one bf16 ulp a conv,
+    compounded over 16 convs; worst seen 1.46% of the features' largest,
+    1.20% of the heatmap's, 1.32% of the shared map's, H100, 3 seeds x 3
+    frames).  Each lateral through ``bev_epilogue`` equals today's
+    ``relu(conv_transpose2d(x, w, b))`` and the plain version bit for bit.
+    The FLOPs counted are the same on both routes.  An ``Engine``'s replay
+    equals its eager frame bit for bit, with ``bev_fused_convs`` 18 and
+    three ``bev_epilogue`` launches a frame."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from dsvt_ai_trt_tpu_torch.bench import synthetic_frames
+    from dsvt_ai_trt_tpu_torch.config import BACKBONE2D_DEBLOCK, DEFAULT_CONFIG
+    from dsvt_ai_trt_tpu_torch.model import backbone2d, detector
+    from dsvt_ai_trt_tpu_torch.model.head import head_forward
+    from dsvt_ai_trt_tpu_torch.ops import bev_epilogue as be
+    from dsvt_ai_trt_tpu_torch.ops.common import relu
+    from dsvt_ai_trt_tpu_torch.runtime import profiler
+    from dsvt_ai_trt_tpu_torch.runtime.profiler import count_flops
+
+    cfg = dataclasses.replace(DEFAULT_CONFIG, precision="bf16")
+    pts, n = synthetic_frames(cfg)["dense_seed0"]
+    points = torch.from_numpy(pts).to(dev)
+    on_card = backbone2d._on_card
+
+    def stack(params, bev, route):
+        monkeypatch.setattr(backbone2d, "_on_card", route)
+        try:
+            feats = backbone2d.backbone2d_forward(bev, params["backbone2d"],
+                                                  "bf16")
+            return {"feats": feats, **head_forward(feats, params["head"],
+                                                   "bf16", cfg, lazy=True)}
+        finally:
+            monkeypatch.setattr(backbone2d, "_on_card", on_card)
+
+    for seed in range(3):
+        params = weights.fold_convs(weights.from_jax_params(
+            weights.random_params(cfg, seed), dev))
+        seen = {}
+        orig = detector.backbone2d_forward
+
+        def record(bev, *args, **kw):
+            seen["bev"] = bev.clone()
+            return orig(bev, *args, **kw)
+        monkeypatch.setattr(detector, "backbone2d_forward", record)
+        with torch.inference_mode():
+            detector.forward(params, points, n, cfg, True, dev)
+        monkeypatch.setattr(detector, "backbone2d_forward", orig)
+        with torch.inference_mode():
+            fused = stack(params, seen["bev"], on_card)
+            plain = stack(params, seen["bev"], lambda x: False)
+        for name, want in plain.items():
+            share = ((fused[name].float() - want.float()).abs().max()
+                     / want.float().abs().max()).item()
+            assert share <= FUSED_SHARE, (seed, name, share)
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    h, w = cfg.grid_size[1], cfg.grid_size[0]
+    out = torch.empty((1, 384, h, w), dtype=torch.bfloat16, device=dev,
+                      memory_format=torch.channels_last)
+    c0 = 0
+    with torch.inference_mode():
+        for s, deblock in enumerate(params["backbone2d"]["deblocks"]):
+            k = BACKBONE2D_DEBLOCK[s][0]
+            x = relu(torch.randn((1, deblock["w"].shape[0], h // k, w // k),
+                                 device=dev, generator=gen)).to(
+                torch.bfloat16, memory_format=torch.channels_last)
+            wt = deblock["w" + backbone2d.BF16]
+            b = deblock["b" + backbone2d.BF16]
+            today = relu(F.conv_transpose2d(x, wt, b, stride=k))
+            y = F.conv_transpose2d(x, wt, None, stride=k)
+            got = be.bev_epilogue_cuda(y, b, out[:, c0:c0 + today.shape[1]])
+            assert torch.equal(got, today), s
+            ref = torch.empty_like(out)[:, :today.shape[1]]
+            assert torch.equal(got, be.bev_epilogue_plain(y, b, ref)), s
+            c0 += today.shape[1]
+
+    bev = seen["bev"]
+    with torch.inference_mode():
+        flops = [count_flops(lambda: stack(params, bev, route)).total
+                 for route in (on_card, lambda x: False)]
+    assert flops[0] == flops[1] > 0
+
+    profiler.enable_spans()
+    try:
+        engine = Engine(params, cfg).warmup()
+        kernels.reset_counts()
+        got = engine(pts, n)
+        record = profiler.spans()[-1]
+    finally:
+        profiler.disable_spans()
+    assert engine.graph_launches["bev_epilogue"] == 3
+    assert kernels.counts()["bev_epilogue"] == 3
+    assert record["counters"]["bev_fused_convs"] == [18]
+    ref = engine.eager(points, torch.tensor(n, device=dev))
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
