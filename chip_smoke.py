@@ -99,6 +99,15 @@ Phases (any failure exits non-zero):
      the eager pass (atol 2e-2, rtol 1e-2 on live parents, zeros past the
      count) and timed with bounds (the ``kernels`` line's ``stage_pool``
      row: the three launches of a frame together);
+ 11c. query (``check_query``): ``dsvt-transfusion-nuscenes`` (upstream
+     DSVT's nuScenes model, the TransFusion-L head, read from
+     ``benchmark/configs/dsvt-transfusion-nuscenes.json``) at bf16 on the
+     dense frame: one replay's launch counts 2/8/8 with no NMS kernel and
+     ``query_attention`` 1, the replay bit-equal to the eager forward;
+     ``query_attention`` held against its plain version on the inputs of
+     the eager pass (atol and rtol 2e-2) and timed with its bound and
+     PyTorch's ``scaled_dot_product_attention`` on the same keys and values
+     (projected outside it) as the library's yardstick;
  12. training (``check_training``), outside inference mode:
      ``DEFAULT_CONFIG`` at fp32 and full width on a fixed seeded batch of 2
      planted scenes (``data.synthetic_batch``): one step's loss and
@@ -216,10 +225,15 @@ PER_FRAME = {"segment_max": 2, "set_attention": 8, "encoder_epilogue": 8,
 # what a bf16 frame launches with the tracer off: the graph holds no stage
 # mark, a pillar model pools nothing between stages, and the three laterals
 # of the BEV ResNet take bev_epilogue (fp32, mixed and sp take none)
-LAUNCHES = {**PER_FRAME, "stage_mark": 0, "stage_pool": 0, "bev_epilogue": 3}
+LAUNCHES = {**PER_FRAME, "stage_mark": 0, "stage_pool": 0, "bev_epilogue": 3,
+            "query_attention": 0}
 # a dsvt-voxel-waymo frame: four stages of one block (8 encoders), B3 in
 # the VFE (2) and in each of the 3 poolings' max, stage_pool in each
 VOXEL_LAUNCHES = {**LAUNCHES, "segment_max": 2 + 3, "stage_pool": 3}
+# a dsvt-transfusion-nuscenes frame: the pillar model's kernels, no NMS, one
+# cross-attention of the TransFusion-L decoder
+QUERY_LAUNCHES = {**LAUNCHES, "rotated_overlap": 0, "nms_peel": 0,
+                  "query_attention": 1}
 NMS_KERNELS = ("rotated_overlap", "nms_peel")   # none without NMS
 SCAN_BATCH = 10                    # frames in one scan graph (bench.BATCH)
 TRAIN_STEPS = 6                    # graph replays held against eager steps
@@ -230,6 +244,8 @@ SYMBOLS = {                        # the __global__ function(s) of each kernel
     "rotated_overlap": "rotated_overlap_kernel",
     "nms_peel": "nms_peel_kernel",
     "bev_epilogue": "bev_epilogue_kernel",
+    # the attention and the combine of its partials
+    "query_attention": "query_attention",
 }
 REPLACES = {
     "segment_max": "dsvt_ai_trt_tpu/ops/segment_pallas.py:125",
@@ -239,6 +255,7 @@ REPLACES = {
     "nms_peel": "dsvt_ai_trt_tpu/ops/nms.py:298",   # XLA's lax.while_loop
     "stage_pool": None,   # the JAX package has no staged backbone
     "bev_epilogue": None,  # XLA fused the laterals' bias, ReLU and concat
+    "query_attention": None,  # the JAX package has no TransFusion head
 }
 NMS_REPS = (200, 20)               # host NMS timings: native, NumPy route
 GOLDEN_TINY = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -246,6 +263,9 @@ GOLDEN_TINY = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # upstream DSVT-V's configuration, as the benchmark's cell runs it (data)
 VOXEL_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "benchmark", "configs", "dsvt-voxel-waymo.json")
+QUERY_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "benchmark", "configs",
+                            "dsvt-transfusion-nuscenes.json")
 
 
 class SmokeFailure(Exception):
@@ -399,7 +419,8 @@ class Recorder:
     ``run_main_path`` holds equal to the replays' bit for bit."""
 
     def __init__(self, names=(*PER_FRAME, "bev_epilogue"), first_only=False):
-        from dsvt_ai_trt_tpu_torch.model import backbone2d, backbone3d
+        from dsvt_ai_trt_tpu_torch.model import (backbone2d, backbone3d,
+                                                 transfusion)
         from dsvt_ai_trt_tpu_torch.ops import (attention_kernel, encoder_kernel,
                                                nms, segment)
         self.calls = {name: [] for name in names}
@@ -413,6 +434,7 @@ class Recorder:
             (nms, "nms_peel", "nms_peel"),
             (backbone3d, "stage_pool", "stage_pool"),
             (backbone2d, "bev_epilogue", "bev_epilogue"),
+            (transfusion, "query_attention", "query_attention"),
         ) if p[2] in names]
         self._orig = []
 
@@ -1438,6 +1460,80 @@ def check_voxel():
             "stage_pool": pool}
 
 
+def check_query(frames):
+    """Phase 11c: ``dsvt-transfusion-nuscenes`` (upstream DSVT's nuScenes
+    model: the TransFusion-L head on the pillar model, read from the
+    benchmark's configuration file) at bf16 with seeded random weights on
+    the dense frame: the launch counts of one replay (counts set to 0 just
+    before it: ``query_attention`` 1, no NMS kernel), the replay bit-equal
+    to the eager forward, 200 finite boxes of 13 columns; kernel
+    ``query_attention`` held against its plain version on the inputs of
+    that eager pass (atol and rtol 2e-2, as the card test) and timed: its
+    device ms against its bound (the k | v projections of L + Pk and
+    Q.K^T and P.V at 989 TFLOP/s, or L and Pk read once), the plain
+    version, and PyTorch's ``scaled_dot_product_attention`` over the same
+    keys and values, projected outside it (the library's yardstick)."""
+    import torch
+    import torch.nn.functional as F
+    from dsvt_ai_trt_tpu_torch import kernels, weights
+    from dsvt_ai_trt_tpu_torch.config import DSVTConfig
+    from dsvt_ai_trt_tpu_torch.ops import query_attention_kernel as qa
+    from dsvt_ai_trt_tpu_torch.runtime.infer import Engine
+    with open(QUERY_CONFIG) as f:
+        raw = json.load(f)["config"]
+    cfg = DSVTConfig.from_json(json.dumps({**raw, "precision": "bf16"}))
+    cfg.validate()
+    pts, n = frames["dense_seed0"]
+    engine = Engine(weights.random_params(cfg, 0), cfg).warmup()
+    engine(pts, n)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    dets = engine(pts, n)
+    torch.cuda.synchronize()
+    counts = kernels.counts()
+    check(counts == QUERY_LAUNCHES,
+          f"query launch counts {counts} != {QUERY_LAUNCHES}")
+    recorder = Recorder(names=("query_attention",))
+    with recorder:
+        recorder.frame = "query"
+        check(same_dets(engine.eager(*on_card({"q": (pts, n)})["q"]), dets),
+              "query: the graph replay differs from the eager forward")
+    check(bool(torch.isfinite(dets.boxes).all())
+          and list(dets.boxes.shape) == [cfg.num_proposals, 13]
+          and 0 < int(dets.count) <= cfg.num_proposals, "query: bad boxes")
+    calls = recorder.calls["query_attention"]
+    check(len(calls) == 1, f"query: {len(calls)} cross-attentions recorded")
+    args = calls[0][1]
+    got, want = qa.query_attention_cuda(*args), qa.query_attention_plain(*args)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    q, feats, pos, w_kv, b_kv, heads = args
+    (Nq, C), HW = q.shape, feats.shape[0]
+    nbytes = (2 * HW * C + 2 * Nq * C + 2 * C * C) * 2 + 2 * C * 4
+    b, by = bound_ms(nbytes, qa.flops(Nq, HW, C), BF16_FLOPS)
+    t_d, how = device_ms(lambda: qa.query_attention_cuda(*args),
+                         SYMBOLS["query_attention"])
+    kv = (feats + pos) @ w_kv.t() + b_kv.to(w_kv.dtype)
+    D = C // heads
+
+    def heads_of(t):
+        return t.reshape(1, -1, heads, D).transpose(1, 2)
+    k4, v4, q4 = heads_of(kv[:, :C]), heads_of(kv[:, C:]), heads_of(q)
+    return {"config": "dsvt-transfusion-nuscenes", "points": int(n),
+            "boxes": int(dets.count), "launches": counts,
+            "ms": cuda_ms(lambda: engine(pts, n), reps=5, warmup=1),
+            "query_attention": {
+                "ms": cuda_ms(lambda: qa.query_attention_cuda(*args)),
+                "device_ms": t_d, "device_ms_by": how,
+                "plain_ms": cuda_ms(lambda: qa.query_attention_plain(*args),
+                                    reps=3, warmup=1),
+                "bound_ms": b, "bound_by": by, "bound_share": b / t_d,
+                "max_abs_err": float((got.float() - want.float()).abs().max()),
+                "queries": Nq, "keys": HW,
+                "library_ms": cuda_ms(
+                    lambda: F.scaled_dot_product_attention(q4, k4, v4))}}
+
+
 def grad_gate(name, got, ref):
     """The JAX package's per-leaf gradient gate (tests/test_training.py):
     max |d| <= max(5e-3 * leaf max, 5e-4).  Returns |d| / the gate."""
@@ -2326,6 +2422,7 @@ def _main(torch) -> int:
         timed("runtime", check_runtime, engine, frames, tmp)
         timed("waymo", check_waymo, tmp)
         voxel = timed("voxel", check_voxel)
+        query = timed("query", check_query, frames)
         with torch.inference_mode(False):
             timed("training", check_training, frames, tmp)
     timed("multi", check_multi, engine, frames)
@@ -2339,7 +2436,10 @@ def _main(torch) -> int:
     # three launches together)
     results["stage_pool"] = voxel["stage_pool"]
     counts = {**counts, "stage_pool": voxel["launches"]["stage_pool"]}
-    named = (*PER_FRAME, "stage_pool", "bev_epilogue")
+    # and the TransFusion-L head's cross-attention, per frame of phase 11c
+    results["query_attention"] = query["query_attention"]
+    counts["query_attention"] = query["launches"]["query_attention"]
+    named = (*PER_FRAME, "stage_pool", "bev_epilogue", "query_attention")
     sources = {name: "dsvt_ai_trt_tpu_torch/csrc/" + kernels.SPECS[name][0]
                for name in named}
     line = {"kernels": [{

@@ -140,6 +140,30 @@ class DSVTConfig:
     # partition ``b % len(window_specs)`` of its stage.
     stages: Tuple[StageSpec, ...] = ()
 
+    # ---- detection head ----
+    # "center": the reference engine's CenterHead above (top-k decode and
+    # rotated NMS).  "transfusion": upstream DSVT's nuScenes head,
+    # TransFusion-L (Bai et al., CVPR 2022; OpenPCDet's
+    # transfusion_head.py, its DENSE_HEAD): ``num_proposals`` heatmap
+    # local maxima decoded by one transformer decoder layer of
+    # ``query_channels`` wide, ``query_heads`` heads and an FFN of
+    # ``query_ffn_dim``, whose cross-attention reads the whole BEV map,
+    # then branches of ``query_branch_channels``; no NMS.  The
+    # CenterHead's widths and thresholds are then unread.
+    head: str = "center"
+    num_proposals: int = 200             # NUM_PROPOSALS
+    query_channels: int = 128            # HIDDEN_CHANNEL
+    query_heads: int = 8                 # NUM_HEADS
+    query_ffn_dim: int = 256             # FFN_CHANNEL
+    query_branch_channels: int = 64      # the prediction branches' hidden
+    query_nms_kernel: int = 3            # NMS_KERNEL_SIZE (the local max)
+    # classes whose local max is a 1x1 pool (not suppressed): nuScenes'
+    # pedestrian and traffic_cone
+    query_free_classes: Tuple[int, ...] = (8, 9)
+    query_score_threshold: float = 0.0   # SCORE_THRESH
+    post_center_range: Tuple[float, ...] = (-61.2, -61.2, -10.0,
+                                            61.2, 61.2, 10.0)
+
     # ---- execution ----
     # "fp32" = strict parity (Precision.HIGHEST matmuls); "mixed" = fp32 data
     # with bf16-input/fp32-accum matmuls (the TPU analogue of USE_FP16,
@@ -167,6 +191,9 @@ class DSVTConfig:
         # (no buffer is sized by max_voxels_per_window: the partitions
         # size their in-window keys from each window's own shape)
         assert self.d_model % self.num_heads == 0
+        assert self.head in ("center", "transfusion"), self.head
+        if self.head == "transfusion":
+            self._validate_query_head()
         if not self.stages:
             assert self.grid_size[2] == 1, (
                 "3-D voxels (grid_size[2] > 1) need the stages that pool "
@@ -207,11 +234,31 @@ class DSVTConfig:
             and tuple(last.sparse_shape[:2]) == tuple(self.grid_size[:2]), (
                 "the strides reach z = 1, at the BEV grid, at the last stage")
 
+    def _validate_query_head(self) -> None:
+        H, W = self.grid_size[1], self.grid_size[0]
+        assert 1 <= self.num_proposals <= self.num_classes * H * W, (
+            "num_proposals: at least one, at most every (class, cell)")
+        assert self.query_channels % self.query_heads == 0, (
+            "query_channels splits over query_heads")
+        assert self.query_ffn_dim >= 1 and self.query_branch_channels >= 1
+        assert self.query_nms_kernel % 2 == 1 and \
+            1 <= self.query_nms_kernel <= min(H, W), (
+                "query_nms_kernel: an odd pool that fits the map")
+        assert all(0 <= c < self.num_classes
+                   for c in self.query_free_classes), "query_free_classes"
+        lo, hi = self.post_center_range[:3], self.post_center_range[3:]
+        assert len(self.post_center_range) == 6 and all(
+            a < b for a, b in zip(lo, hi)), "post_center_range: min, max"
+
     def to_json(self) -> str:
         raw = dataclasses.asdict(self)
-        # a pillar model's stamp is the one it always was
+        # a pillar model's stamp is the one it always was, and a
+        # CenterHead's too
         if not self.stages:
             del raw["stages"]
+        if self.head == "center":
+            for key in QUERY_KEYS:
+                del raw[key]
         return json.dumps(raw, indent=2)
 
     @staticmethod
@@ -225,8 +272,10 @@ class DSVTConfig:
                       tuple(st["stride"]))
             for st in raw.get("stages", ()))
         for key in ("voxel_size", "pc_range_min", "pc_range_max", "grid_size",
-                    "sparse_shape", "pfn_channels"):
-            raw[key] = tuple(raw[key])
+                    "sparse_shape", "pfn_channels", "query_free_classes",
+                    "post_center_range"):
+            if key in raw:
+                raw[key] = tuple(raw[key])
         # drop keys from older stamps (e.g. a removed field) — loudly, since
         # a removed-but-behavioral field (an old attn_impl, say) would
         # otherwise weaken load_engine's config-mismatch guard silently
@@ -240,6 +289,31 @@ class DSVTConfig:
                 "match if any were behavioral", dropped)
         raw = {k: v for k, v in raw.items() if k in known}
         return DSVTConfig(**raw)
+
+
+# the keys of the TransFusion-L head, left out of a CenterHead's stamp
+QUERY_KEYS = ("head", "num_proposals", "query_channels", "query_heads",
+              "query_ffn_dim", "query_branch_channels", "query_nms_kernel",
+              "query_free_classes", "query_score_threshold",
+              "post_center_range")
+
+
+def query_head(cfg) -> bool:
+    """Whether ``cfg`` runs the TransFusion-L head (the JAX package's
+    DSVTConfig has no head key: the CenterHead)."""
+    return getattr(cfg, "head", "center") == "transfusion"
+
+
+# TransFusion-L's prediction branches in upstream order, with their output
+# channels (OpenPCDet's SeparateHead_Transfusion: center, height, dim, rot,
+# vel, and heatmap of num_classes)
+QUERY_BRANCHES = (("center", 2), ("height", 1), ("dim", 3), ("rot", 2),
+                  ("vel", 2), ("heatmap", None))
+
+
+def query_branches(cfg):
+    return tuple((name, cfg.num_classes if c is None else c)
+                 for name, c in QUERY_BRANCHES)
 
 
 # The stages of a configuration.  Functions, not methods: the port's entry

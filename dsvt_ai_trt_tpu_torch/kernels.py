@@ -64,6 +64,8 @@ SPECS = {
                    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "bev_epilogue": ("bev_epilogue.cu", "dsvt_bev_epilogue",
                      [_P, _P, _P, _I, _I, _I, _P]),
+    "query_attention": ("query_attention.cu", "dsvt_query_attention",
+                        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
 }
 
 ARCH = "sm_90a"

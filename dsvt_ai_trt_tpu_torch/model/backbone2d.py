@@ -79,8 +79,8 @@ def conv_nodes(params: dict):
     for deblock in bev["deblocks"]:
         yield deblock, "w", "b"
     yield head, "shared_w", "shared_b"
-    for branch in head.values():
-        if isinstance(branch, dict):
+    for branch in head.values():   # the TransFusion head's convs: "hm"
+        if isinstance(branch, dict) and "w0" in branch:
             yield branch, "w0", "b0"
             yield branch, "w1", "b1"
 

@@ -3,7 +3,11 @@
 voxelize -> VFE (2x segmented max, kernel B3) -> window/set partition per
 window spec -> DSVT backbone (4 blocks x 2 encoders; kernels B1 + B2 on the
 bf16/mixed fast paths) -> BEV scatter -> BEV ResNet -> lazy CenterHead ->
-top-k decode + score filter -> rotated NMS (kernel B4).  A staged
+top-k decode + score filter -> rotated NMS (kernel B4), or, with
+``DSVTConfig.head`` "transfusion", upstream DSVT's nuScenes head
+TransFusion-L (model/transfusion.py: heatmap proposals decoded by a
+transformer decoder layer whose cross-attention is kernel
+``query_attention``; no NMS stage, whatever ``with_nms`` says).  A staged
 configuration (``DSVTConfig.stages``, upstream DSVT-V) voxelizes on a 3-D
 grid and runs, per stage, its window and set partitions and its blocks,
 pooling each stage's voxels into the next (``ops/pooling.py``,
@@ -58,11 +62,12 @@ from typing import Dict, List, NamedTuple, Optional
 
 import torch
 
-from ..config import DSVTConfig, stage_specs, staged, used_partitions
+from ..config import (DSVTConfig, query_head, stage_specs, staged,
+                      used_partitions)
 from ..ops import layout, nms as nms_ops
 from ..ops.bev import map_to_bev
 from ..ops.common import resolve_device
-from ..ops.postprocess import Detections, decode_and_filter
+from ..ops.postprocess import Detections, decode_and_filter, decode_queries
 from ..ops.pooling import PoolMap, pool_map
 from ..ops.voxelize import Pillars, voxelize
 from ..ops.windows import set_partition, window_partition
@@ -73,6 +78,7 @@ from ..runtime.profiler import stage_scope
 from .backbone2d import backbone2d_forward, fused_convs
 from .backbone3d import staged_forward
 from .head import head_forward
+from .transfusion import head_forward as query_head_forward
 from .vfe import vfe_forward
 
 
@@ -146,6 +152,10 @@ def _unsharded(cfg: DSVTConfig, tp) -> None:
         raise ValueError("a staged configuration (DSVTConfig.stages) runs on "
                          "one device: tensor and spatial sharding of its "
                          "stages and poolings are not written")
+    if query_head(cfg) and (tp is not None or spatial.active()):
+        raise ValueError("the TransFusion-L head (DSVTConfig.head) runs on "
+                         "one device: tensor and spatial sharding of it are "
+                         "not written")
 
 
 STAGES = ("voxelize", "vfe", "partition", "backbone3d", "bev_scatter",
@@ -183,15 +193,22 @@ def forward(params: Dict, points, num_points, cfg: DSVTConfig,
     restrides, fused = layout.restrides(), fused_convs()
     with stage_scope("backbone2d"):
         bev = backbone2d_forward(bev, params["backbone2d"], precision)
+    query = query_head(cfg)
     with stage_scope("head"):
-        head_out = head_forward(bev, params["head"], precision, cfg,
-                                lazy=True)
+        if query:
+            head_out = query_head_forward(bev, params["head"], cfg,
+                                          use_kernels)
+        else:
+            head_out = head_forward(bev, params["head"], precision, cfg,
+                                    lazy=True)
     profiler.counter("bev_restrides", layout.restrides() - restrides)
     profiler.counter("bev_fused_convs", fused_convs() - fused)
     with stage_scope("decode"):
-        dets = decode_and_filter(head_out, cfg, head_params=params["head"])
-    profiler.counter("boxes_before_nms", dets.count)
-    if with_nms:
+        dets = (decode_queries(head_out, cfg) if query else
+                decode_and_filter(head_out, cfg, head_params=params["head"]))
+    profiler.counter("query_boxes" if query else "boxes_before_nms",
+                     dets.count)
+    if with_nms and not query:
         with stage_scope("nms"):
             boxes, count = nms_ops.nms(dets.boxes, dets.count,
                                        cfg.nms_threshold,
@@ -249,8 +266,13 @@ def float_stages(params, pillars: Pillars, stages: List[StageParts],
                  tp=None) -> IntermediateOutputs:
     """VFE to the full-map head on the plain paths, from the partitions of
     ``partition_frame``; ``tp`` as in ``forward``.  ``dsvt_feats`` are the
-    last stage's."""
+    last stage's.  The CenterHead only."""
     _unsharded(cfg, tp)
+    if query_head(cfg):
+        raise ValueError("the full-map head maps and training of the "
+                         "TransFusion-L head (DSVTConfig.head) are not "
+                         "written: its Hungarian assignment and losses are "
+                         "not ported")
     precision = cfg.precision
     pfeats = vfe_forward(pillars, params["vfe"], cfg, use_kernels=False)
     dfeats = staged_forward(pfeats, stages, params, cfg, use_kernels=False,

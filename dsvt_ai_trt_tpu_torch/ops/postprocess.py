@@ -8,6 +8,11 @@ the port runs exact top-k whatever it says.
 
 Heading decode: ``atan2(sin, cos)`` by default; ``cfg.parity_atan`` gives
 the reference's ``atan(sin/cos)``.
+
+The TransFusion-L head (model/transfusion.py) takes its proposals from
+``select_proposals`` (the heatmap's local maxima, then the exact top
+``num_proposals`` of every (class, cell)) and decodes its queries with
+``decode_queries``: boxes with a velocity, no NMS.
 """
 
 from __future__ import annotations
@@ -15,15 +20,23 @@ from __future__ import annotations
 from typing import Dict, NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from ..config import DSVTConfig, head_branches
+
+# the columns of a TransFusion-L box past the CenterHead's nine: velocity,
+# then the query's proposal (its cell, row-major y * W + x, and class)
+QUERY_COLUMNS = ("vx", "vy", "cell", "proposal_class")
 
 
 class Detections(NamedTuple):
     """boxes: [K, 9] = (x, y, z, dx, dy, dz, heading, class, score); rows
-    past ``count`` are zero.  occupancy: [2 + n_window_specs] = (kept
-    points, pillars, sets per window spec), filled by model.detector.forward
-    so the runtime can flag cap saturation; None elsewhere."""
+    past ``count`` are zero.  The TransFusion-L head's boxes are [Nq, 13],
+    ``QUERY_COLUMNS`` after the nine, one a query: the kept first, then the
+    queries the score and range filter dropped, each in query order, their
+    values kept.  occupancy: [2 + n_window_specs] = (kept points, pillars,
+    sets per window spec), filled by model.detector.forward so the runtime
+    can flag cap saturation; None elsewhere."""
 
     boxes: torch.Tensor
     count: torch.Tensor
@@ -150,5 +163,78 @@ def decode_and_filter(head_out: Dict[str, torch.Tensor], cfg: DSVTConfig,
                          heading, classes.float(), scores], dim=-1)
     boxes = torch.where(keep[:, None], boxes, torch.zeros_like(boxes))
     # stable compaction: kept rows first, in score order
+    order = torch.sort(torch.where(keep, 0, 1), stable=True).indices
+    return Detections(boxes=boxes[order], count=keep.long().sum())
+
+
+def select_proposals(hm: torch.Tensor, cfg: DSVTConfig):
+    """TransFusion-L's proposals from its heatmap logits ``hm`` [1, classes,
+    H, W] (any layout): s = sigmoid(hm) in f32; the local max a
+    ``query_nms_kernel`` max pool of stride 1 without padding, written into
+    the interior of a zero map (the border keeps 0, so no border cell is a
+    maximum), a 1x1 pool for ``query_free_classes``; s * (s == local max).
+    Then the exact top ``num_proposals`` of that [classes, H*W] flattened
+    class-major, ties to the lower flat index: each class's top, then the
+    top of their union (the same set).  Returns (the masked scores
+    [classes, H*W], the proposals' classes and cells [Nq], the number of
+    (class, cell) above 0)."""
+    ncls, H, W = hm.shape[1:]
+    k = cfg.query_nms_kernel
+    s = torch.sigmoid(hm.float()).contiguous()[0]
+    pad = k // 2
+    local = F.pad(F.max_pool2d(s[None], k, stride=1, padding=0)[0],
+                  (pad, pad, pad, pad))
+    for c in cfg.query_free_classes:
+        local[c] = s[c]
+    masked = (s * (s == local)).reshape(ncls, H * W)
+    K = cfg.num_proposals
+    cls_scores, cls_inds = _top_k(masked, min(K, H * W))
+    _, sel = _top_k(cls_scores.reshape(-1), K)
+    per = cls_scores.shape[1]
+    return masked, sel // per, cls_inds.reshape(-1)[sel], \
+        (masked > 0).sum()
+
+
+def query_positions(cells: torch.Tensor, cfg: DSVTConfig) -> torch.Tensor:
+    """Upstream's ``bev_pos`` of flat cells: ``create_2D_grid(X, Y)``, a
+    meshgrid of (0..X-1, 0..Y-1) plus 0.5 flattened with y fastest, so flat
+    index k reads (k // Y + 0.5, k % Y + 0.5) (X, Y = grid_size[:2]) [N, 2]
+    f32."""
+    Y = cfg.grid_size[1]
+    return torch.stack([torch.div(cells, Y, rounding_mode="floor"),
+                        cells % Y], -1).float() + 0.5
+
+
+def decode_queries(preds, cfg: DSVTConfig) -> Detections:
+    """TransFusion-L's boxes from its branches ``preds`` ({center [Nq, 2],
+    height [Nq, 1], dim [Nq, 3], rot [Nq, 2] (sin, cos), vel [Nq, 2],
+    heatmap [Nq, classes]}, f32) and its proposals (``classes``, ``cells``,
+    ``cell_scores`` [Nq, classes], the masked scores at each query's cell):
+    score = max over classes of sigmoid(heatmap) * cell_scores * one_hot
+    (the label its class); x = center_x * vx + xmin, y likewise (``center``
+    holds the cell's bev_pos already; the map's stride is 1); z = height;
+    sizes exp(dim);
+    heading atan2(sin, cos); velocity as regressed.  Kept: score above
+    ``query_score_threshold`` and the centre inside ``post_center_range``
+    (bounds included).  Boxes [Nq, 13] as ``Detections`` says."""
+    cells, classes = preds["cells"], preds["classes"]
+    ncls = preds["heatmap"].shape[1]
+    one_hot = classes[:, None] == torch.arange(ncls, device=cells.device)
+    score, label = (torch.sigmoid(preds["heatmap"]) * preds["cell_scores"]
+                    * one_hot).max(dim=1)
+    center = preds["center"]
+    vx, vy, _vz = cfg.voxel_size
+    x = center[:, 0] * vx + cfg.pc_range_min[0]
+    y = center[:, 1] * vy + cfg.pc_range_min[1]
+    z = preds["height"][:, 0]
+    dim = torch.exp(preds["dim"])
+    rot, vel = preds["rot"], preds["vel"]
+    heading = torch.atan2(rot[:, 0], rot[:, 1])
+    lo, hi = cfg.post_center_range[:3], cfg.post_center_range[3:]
+    keep = ((score > cfg.query_score_threshold) & (x >= lo[0]) & (x <= hi[0])
+            & (y >= lo[1]) & (y <= hi[1]) & (z >= lo[2]) & (z <= hi[2]))
+    boxes = torch.stack([x, y, z, dim[:, 0], dim[:, 1], dim[:, 2], heading,
+                         label.float(), score, vel[:, 0], vel[:, 1],
+                         cells.float(), classes.float()], dim=-1)
     order = torch.sort(torch.where(keep, 0, 1), stable=True).indices
     return Detections(boxes=boxes[order], count=keep.long().sum())

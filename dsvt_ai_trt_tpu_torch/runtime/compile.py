@@ -64,10 +64,11 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from .. import kernels
-from ..config import DSVTConfig
+from ..config import DSVTConfig, query_head
 from ..model.detector import forward, forward_batch
+from ..model.transfusion import fold_query
 from ..ops import (attention_kernel, encoder_kernel, nms_kernel, nms_peel,
-                   pool_kernel, segment)
+                   pool_kernel, query_attention_kernel, segment)
 from ..ops.common import matmul_dtype, resolve_device
 from ..ops.postprocess import Detections
 from ..parallel import collectives
@@ -324,7 +325,8 @@ PLAIN_VERSIONS = ((segment, "segmented_max_plain"),
                   (encoder_kernel, "encoder_epilogue_plain"),
                   (nms_kernel, "pairwise_overlap_clip"),
                   (nms_peel, "nms_peel_plain"),
-                  (pool_kernel, "stage_pool_plain"))
+                  (pool_kernel, "stage_pool_plain"),
+                  (query_attention_kernel, "query_attention_plain"))
 aten = torch.ops.aten
 # inside inference mode a read reaches the dispatcher as ``item`` or
 # ``is_nonzero``, not decomposed to ``_local_scalar_dense``
@@ -465,6 +467,8 @@ class Engine:
             self.params = from_jax_params(params, self.device)
         if matmul_dtype(cfg.precision) == torch.bfloat16:
             fold_convs(self.params)       # the bf16 convs' weights, once
+        if query_head(cfg):
+            fold_query(self.params["head"], cfg)   # Pk and the k | v weights
         self._graph = None
         self.graph_launches = {}   # kernel launches one replay makes
         self.capture_seconds = None

@@ -37,7 +37,9 @@ replay), "eager" (the forward or step op by op) or "host" (a warm-up):
   (``csrc/stage_mark.cu``) that stores the card's ``%globaltimer`` into a
   slot of the owner's ``Marks`` buffer on entry to each stage and once
   after the last ("end").  A frame marks the detector's ``STAGES``
-  (10 marks with NMS; a staged backbone also each pooling), a step
+  (10 marks with NMS; a staged backbone also each pooling; the
+  TransFusion-L head its ``query`` stage inside ``head``, and no NMS:
+  10 marks), a step
   ``TRAIN_STAGES`` (4 marks); ``mark_names`` gives the names a call's
   marks open, which a trace of the card needs (``runtime/trace.py``,
   which cannot read a mark's slot).  Inside a
@@ -50,7 +52,11 @@ replay), "eager" (the forward or step op by op) or "host" (a warm-up):
   forward is traced or captured, written into the buffer as a constant:
   ``bev_restrides`` and ``bev_fused_convs`` (model/detector.py; the second
   a step's too, 0); a step's ``grad_gathers`` (the row gathers its forward
-  ran as ``index_select``, ops/gather.py; parallel/training.py).
+  ran as ``index_select``, ops/gather.py; parallel/training.py).  A
+  TransFusion-L frame counts ``proposals`` (the (class, cell) scores above
+  0 after the heatmap's local max, model/transfusion.py) and
+  ``query_boxes`` (the boxes its decode keeps) in place of
+  ``boxes_before_nms``.
 
 Right after a replay the owner enqueues one copy of its marks buffer into
 a ring of ``RING`` page-locked host slots, on the stream of the result's

@@ -24,8 +24,9 @@ from typing import Dict, List
 
 import numpy as np
 
-from .config import (DSVTConfig, head_branches, stage_blocks, stage_specs,
-                     staged, BACKBONE2D_STAGES, BACKBONE2D_DEBLOCK)
+from .config import (DSVTConfig, head_branches, query_branches, query_head,
+                     stage_blocks, stage_specs, staged, BACKBONE2D_STAGES,
+                     BACKBONE2D_DEBLOCK, BACKBONE2D_OUT_CHANNELS)
 
 Raw = Dict[str, np.ndarray]
 
@@ -145,6 +146,10 @@ def param_spec(cfg: DSVTConfig) -> Dict[str, tuple]:
         spec[f"module.backbone_2d.deblocks.{s}.0.weight"] = (stage_ch[s], 128, k, k)
         spec.update(_bn_names(f"module.backbone_2d.deblocks.{s}.1", 128))
 
+    if query_head(cfg):
+        spec.update(query_head_spec(cfg))
+        return spec
+
     # CenterHead (cpp:1369-1468)
     spec["module.dense_head.shared_conv.0.weight"] = (cfg.head_shared_channels, 128 * 3, 3, 3)
     spec.update(_bn_names("module.dense_head.shared_conv.1", cfg.head_shared_channels))
@@ -156,6 +161,73 @@ def param_spec(cfg: DSVTConfig) -> Dict[str, tuple]:
         spec[f"{p}.1.bias"] = (out_c,)
 
     return spec
+
+
+QUERY_HEAD = "module.dense_head"
+
+
+def query_head_spec(cfg: DSVTConfig) -> Dict[str, tuple]:
+    """The TransFusion-L head's tensors under OpenPCDet's ``dense_head``
+    names (transfusion_head.py): the shared conv, the heatmap head
+    (BasicBlock2D, conv), the class encoding, the decoder layer (two
+    ``nn.MultiheadAttention``, the FFN, three LayerNorms, the two
+    ``PositionEmbeddingLearned``) and the prediction branches
+    (SeparateHead_Transfusion)."""
+    C, F, B = cfg.query_channels, cfg.query_ffn_dim, cfg.query_branch_channels
+    p, d = QUERY_HEAD, f"{QUERY_HEAD}.decoder"
+    spec = {f"{p}.shared_conv.weight": (C, BACKBONE2D_OUT_CHANNELS, 3, 3),
+            f"{p}.shared_conv.bias": (C,),
+            f"{p}.heatmap_head.0.conv.weight": (C, C, 3, 3)}
+    spec.update(_bn_names(f"{p}.heatmap_head.0.bn", C))
+    spec[f"{p}.heatmap_head.1.weight"] = (cfg.num_classes, C, 3, 3)
+    spec[f"{p}.heatmap_head.1.bias"] = (cfg.num_classes,)
+    spec[f"{p}.class_encoding.weight"] = (C, cfg.num_classes, 1)
+    spec[f"{p}.class_encoding.bias"] = (C,)
+    for attn in ("self_attn", "multihead_attn"):
+        spec[f"{d}.{attn}.in_proj_weight"] = (3 * C, C)
+        spec[f"{d}.{attn}.in_proj_bias"] = (3 * C,)
+        spec[f"{d}.{attn}.out_proj.weight"] = (C, C)
+        spec[f"{d}.{attn}.out_proj.bias"] = (C,)
+    spec[f"{d}.linear1.weight"] = (F, C)
+    spec[f"{d}.linear1.bias"] = (F,)
+    spec[f"{d}.linear2.weight"] = (C, F)
+    spec[f"{d}.linear2.bias"] = (C,)
+    for n in (1, 2, 3):
+        spec[f"{d}.norm{n}.weight"] = (C,)
+        spec[f"{d}.norm{n}.bias"] = (C,)
+    for pe in ("self_posembed", "cross_posembed"):
+        e = f"{d}.{pe}.position_embedding_head"
+        spec[f"{e}.0.weight"] = (C, 2, 1)
+        spec[f"{e}.0.bias"] = (C,)
+        spec.update(_bn_names(f"{e}.1", C))
+        spec[f"{e}.3.weight"] = (C, C, 1)
+        spec[f"{e}.3.bias"] = (C,)
+    for name, out_c in query_branches(cfg):
+        b = f"{p}.prediction_head.{name}"
+        spec[f"{b}.0.0.weight"] = (B, C, 1)
+        spec.update(_bn_names(f"{b}.0.1", B))
+        spec[f"{b}.1.weight"] = (out_c, B, 1)
+        spec[f"{b}.1.bias"] = (out_c,)
+    return spec
+
+
+# the final convs' biases of TransFusion-L's branches: quiet weights and
+# these biases give boxes of a few metres, as the CenterHead's random head;
+# the heatmap's at upstream's init, -2.19
+QUERY_BIAS = {"center": 0.2, "height": -0.5, "dim": 0.3, "rot": 0.2,
+              "vel": 0.0, "heatmap": -2.19}
+
+
+def grid_bn_stats(w: np.ndarray, b: np.ndarray, cfg: DSVTConfig):
+    """BatchNorm statistics of ``x @ w.T + b`` over every cell's bev_pos
+    (x uniform over 0.5 .. X - 0.5, y over 0.5 .. Y - 0.5, independent):
+    the running mean and variance a trained position embedding's BN holds,
+    so that random weights embed positions at unit scale."""
+    X, Y = cfg.grid_size[0], cfg.grid_size[1]
+    w = w.reshape(len(b), 2)
+    mean = w[:, 0] * X / 2.0 + w[:, 1] * Y / 2.0 + b
+    var = w[:, 0] ** 2 * (X * X - 1) / 12.0 + w[:, 1] ** 2 * (Y * Y - 1) / 12.0
+    return mean.astype(np.float32), var.astype(np.float32)
 
 
 def random_raw(cfg: DSVTConfig, seed: int = 0, scale: float = 0.05) -> Raw:
@@ -193,6 +265,9 @@ def random_raw(cfg: DSVTConfig, seed: int = 0, scale: float = 0.05) -> Raw:
     # heatmap scores sit around the 0.3 threshold and dims decode to a few
     # meters.  Without this, parity/NMS behavior on random weights is
     # degenerate (dims ~ e^50).
+    if query_head(cfg):
+        _quiet_query_head(raw, cfg, rng)
+        return raw
     head_bias = {"hm": -2.0, "dim": 0.3, "center": 0.2, "center_z": -0.5,
                  "rot": 0.2, "iou": 0.0}
     for branch, bias in head_bias.items():
@@ -201,6 +276,30 @@ def random_raw(cfg: DSVTConfig, seed: int = 0, scale: float = 0.05) -> Raw:
         raw[wname] = rng.normal(0, 0.02, raw[wname].shape).astype(np.float32)
         raw[bname] = (bias + rng.normal(0, 0.1, raw[bname].shape)).astype(np.float32)
     return raw
+
+
+def _quiet_query_head(raw: Raw, cfg: DSVTConfig, rng) -> None:
+    """The TransFusion-L head's random checkpoint made usable: quiet final
+    convs with ``QUERY_BIAS`` biases (the heatmap conv's too), attention
+    projections at ``nn.MultiheadAttention``'s Xavier scale, and the
+    position embeddings' BatchNorm statistics of the grid
+    (``grid_bn_stats``)."""
+    p, d = QUERY_HEAD, f"{QUERY_HEAD}.decoder"
+    finals = [(f"{p}.prediction_head.{n}.1", n) for n, _ in
+              query_branches(cfg)] + [(f"{p}.heatmap_head.1", "heatmap")]
+    for conv, branch in finals:
+        shape = raw[f"{conv}.weight"].shape
+        raw[f"{conv}.weight"] = rng.normal(0, 0.02, shape).astype(np.float32)
+        raw[f"{conv}.bias"] = np.full(shape[0], QUERY_BIAS[branch],
+                                      np.float32)
+    for attn in ("self_attn", "multihead_attn"):
+        w = f"{d}.{attn}.in_proj_weight"
+        std = float(np.sqrt(2.0 / sum(raw[w].shape)))
+        raw[w] = rng.normal(0, std, raw[w].shape).astype(np.float32)
+    for pe in ("self_posembed", "cross_posembed"):
+        e = f"{d}.{pe}.position_embedding_head"
+        raw[f"{e}.1.running_mean"], raw[f"{e}.1.running_var"] = \
+            grid_bn_stats(raw[f"{e}.0.weight"], raw[f"{e}.0.bias"], cfg)
 
 
 def calibrated_raw(cfg: DSVTConfig, points, num_points, seed: int = 0,
@@ -495,6 +594,10 @@ def prepare_params(raw: Raw, cfg: DSVTConfig) -> Dict:
         deblocks.append({"w": w.astype(np.float32).copy(), "b": shift})
     p["backbone2d"] = {"stages": stages, "deblocks": deblocks}
 
+    if query_head(cfg):
+        p["head"] = _query_head_leaves(raw, cfg)
+        return p
+
     head: Dict = {}
     head["shared_w"], head["shared_b"] = _conv_bn(
         raw, "module.dense_head.shared_conv.0", "module.dense_head.shared_conv.1", cfg.bn2d_eps)
@@ -505,6 +608,54 @@ def prepare_params(raw: Raw, cfg: DSVTConfig) -> Dict:
         head[name] = {"w0": w0h, "b0": b0h, "w1": w1h, "b1": b1h}
     p["head"] = head
     return p
+
+
+def _query_head_leaves(raw: Raw, cfg: DSVTConfig) -> Dict:
+    """The TransFusion-L head folded: convs HWIO with their BatchNorm
+    folded (PyTorch's default eps, 1e-5 = ``bn1d_eps``, for every BN of
+    the head), linears [in, out], the class encoding [classes, C]; the
+    attentions' in-projections split into q, k, v."""
+    C, eps = cfg.query_channels, cfg.bn1d_eps
+    p, d = QUERY_HEAD, f"{QUERY_HEAD}.decoder"
+    head: Dict = {}
+    head["shared_w"], head["shared_b"] = _conv_bias(raw, f"{p}.shared_conv", C)
+    w0, b0 = _conv_bn(raw, f"{p}.heatmap_head.0.conv", f"{p}.heatmap_head.0.bn",
+                      eps)
+    w1, b1 = _conv_bias(raw, f"{p}.heatmap_head.1", cfg.num_classes)
+    head["hm"] = {"w0": w0, "b0": b0, "w1": w1, "b1": b1}
+    head["class_w"] = raw[f"{p}.class_encoding.weight"].reshape(
+        C, cfg.num_classes).T.astype(np.float32).copy()
+    head["class_b"] = raw[f"{p}.class_encoding.bias"].astype(np.float32).copy()
+    for key, pe in (("self_pos", "self_posembed"),
+                    ("cross_pos", "cross_posembed")):
+        e = f"{d}.{pe}.position_embedding_head"
+        w1e, b1e = _linear_bn(raw, f"{e}.0", f"{e}.1", eps, bias=True)
+        w2e, b2e = _linear(raw, f"{e}.3", C)
+        head[key] = {"w1": w1e, "b1": b1e, "w2": w2e, "b2": b2e}
+    for key, attn in (("self_attn", "self_attn"),
+                      ("cross_attn", "multihead_attn")):
+        w = raw[f"{d}.{attn}.in_proj_weight"].reshape(3 * C, C)
+        b = raw[f"{d}.{attn}.in_proj_bias"]
+        leaves = {}
+        for i, part in enumerate("qkv"):
+            leaves[f"w{part}"] = w[i * C:(i + 1) * C].T.astype(np.float32).copy()
+            leaves[f"b{part}"] = b[i * C:(i + 1) * C].astype(np.float32).copy()
+        leaves["wo"], leaves["bo"] = _linear(raw, f"{d}.{attn}.out_proj", C)
+        head[key] = leaves
+    head["ffn_w1"], head["ffn_b1"] = _linear(raw, f"{d}.linear1", C)
+    head["ffn_w2"], head["ffn_b2"] = _linear(raw, f"{d}.linear2",
+                                             cfg.query_ffn_dim)
+    for n in (1, 2, 3):
+        head[f"ln{n}_g"] = raw[f"{d}.norm{n}.weight"].astype(np.float32).copy()
+        head[f"ln{n}_b"] = raw[f"{d}.norm{n}.bias"].astype(np.float32).copy()
+    branches = {}
+    for name, _c in query_branches(cfg):
+        b = f"{p}.prediction_head.{name}"
+        w1b, b1b = _linear_bn(raw, f"{b}.0.0", f"{b}.0.1", eps)
+        w2b, b2b = _linear(raw, f"{b}.1", cfg.query_branch_channels)
+        branches[name] = {"w1": w1b, "b1": b1b, "w2": w2b, "b2": b2b}
+    head["branches"] = branches
+    return head
 
 
 def _pool_leaves(raw: Raw, s: int, d: int) -> Dict:
@@ -636,12 +787,14 @@ def refold(params: Dict) -> Dict:
 def _is_folded(path) -> bool:
     from .model.backbone2d import BF16
     from .model.backbone3d import DERIVED_KEYS, POOL_FOLDED_KEYS
+    from .model.transfusion import QUERY_DERIVED
     if path[0] == "blocks":
         return path[-1] in DERIVED_KEYS
     if path[0] == "pool":
         return path[-1] in POOL_FOLDED_KEYS
     return (path[0] in ("backbone2d", "head") and isinstance(path[-1], str)
-            and path[-1].endswith(BF16))
+            and (path[-1].endswith(BF16) or (path[0] == "head"
+                                             and path[-1] in QUERY_DERIVED)))
 
 
 def keystr(path) -> str:
@@ -678,7 +831,7 @@ def to_torch_leaf(path, leaf, device):
     convs OIHW."""
     import torch
     arr = np.asarray(leaf, np.float32)
-    if _conv_keys(path):
+    if _conv_keys(path) and arr.ndim == 4:
         arr = np.transpose(arr, (3, 2, 0, 1))
     return torch.tensor(np.ascontiguousarray(arr), device=device)
 
@@ -687,7 +840,7 @@ def to_numpy_leaf(path, tensor) -> np.ndarray:
     """One leaf as the JAX dict holds it: a float32 NumPy copy, convs
     HWIO."""
     arr = tensor.detach().float().cpu().numpy()
-    if _conv_keys(path):
+    if _conv_keys(path) and arr.ndim == 4:
         arr = np.transpose(arr, (2, 3, 1, 0))
     return np.array(arr, order="C", copy=True)
 

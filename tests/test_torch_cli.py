@@ -157,10 +157,14 @@ def test_bench_prints_its_line(golden_dir, capsys):
 
 def test_tiny_config_round_trips_through_json():
     cfg = tiny_config()
-    from dsvt_ai_trt_tpu_torch.config import DSVTConfig
+    from dsvt_ai_trt_tpu_torch.config import QUERY_KEYS, DSVTConfig
     back = dataclasses.asdict(DSVTConfig.from_json(cfg.to_json()))
-    # the port's staged-backbone field, at the pillar model's default
+    # the port's staged-backbone and detection-head fields, at the pillar
+    # model's and the CenterHead's defaults
     assert back.pop("stages") == ()
+    assert {k: back.pop(k) for k in QUERY_KEYS} == {
+        k: v for k, v in dataclasses.asdict(DSVTConfig()).items()
+        if k in QUERY_KEYS}
     assert back == dataclasses.asdict(cfg)
 
 
