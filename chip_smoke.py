@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. build the eight CUDA kernels (the five of the pillar model's main
-     path, the BEV laterals' epilogue, the staged model's pooling and the
+  1. build the ten CUDA kernels (the five of the pillar model's main
+     path, the voxelizer's segment work, the BEV laterals' epilogue, the
+     staged model's pooling, TransFusion-L's cross-attention and the
      tracer's stage mark) from ``dsvt_ai_trt_tpu_torch/csrc`` (one
      ``nvcc`` each, all at once) and print the build seconds;
   2. print the card's name and power limit;
@@ -16,10 +17,10 @@ Phases (any failure exits non-zero):
      seed): each frame is one replay of the CUDA graph the engine captured
      at warm-up; print boxes, occupancy and ms per frame (CUDA events,
      after warm-up);
-  4. check the launch counters rose by exactly 2 / 8 / 8 / 1 / 1 / 3 per
-     frame (segment_max / set_attention / encoder_epilogue /
-     rotated_overlap / nms_peel / bev_epilogue; a replay counts what its
-     capture recorded);
+  4. check the launch counters rose by exactly 2 / 8 / 8 / 1 / 1 / 3 / 2
+     per frame (segment_max / set_attention / encoder_epilogue /
+     rotated_overlap / nms_peel / bev_epilogue / voxel_segments; a replay
+     counts what its capture recorded);
   5. run the same frames through the eager forward (``Engine.eager``):
      its outputs equal the replays' bit for bit, and it records the
      kernels' inputs (a replay calls no Python); profile one frame's
@@ -40,6 +41,17 @@ Phases (any failure exits non-zero):
      call (``wrapper_device_ms``); B3 also on a seeded stream of 1..48-row
      segments (real clouds' pillars), B2 also at 1, 132 and 264 tiles of 64
      rows; bev_epilogue bit-equal on the first frame's three laterals;
+  5a. voxelize (``check_voxelize``): kernel ``voxel_segments`` at the
+     three served configurations' caps (``dsvt-nuscenes`` on the dense
+     frame, ``dsvt-waymo`` and ``dsvt-voxel-waymo`` on phase 11's
+     180 000-point frame, read from the benchmark's configuration files):
+     both launches bit-equal to their plain steps (``cap_keys_plain``,
+     ``pillars_plain``) and the whole voxelize bit-equal both ways; the two
+     launches timed (CUDA events, device-only) against their bound (bytes
+     at 3.35 TB/s), the plain steps they replace, and ``torch.cummax``
+     over the same rows (the full stream and twice the compacted one, the
+     plain version's three scans) as the library's yardstick; and the
+     whole voxelize's device ms both ways;
   5b. graph (``check_graph``): one eager kernel-path frame under
      ``torch.cuda.set_sync_debug_mode("error")`` (no synchronisation);
      engines with and without NMS at ``DEFAULT_CONFIG`` and at
@@ -223,10 +235,11 @@ F32_FLOPS = 67e12                  # f32 outside the tensor cores
 PER_FRAME = {"segment_max": 2, "set_attention": 8, "encoder_epilogue": 8,
              "rotated_overlap": 1, "nms_peel": 1}
 # what a bf16 frame launches with the tracer off: the graph holds no stage
-# mark, a pillar model pools nothing between stages, and the three laterals
-# of the BEV ResNet take bev_epilogue (fp32, mixed and sp take none)
+# mark, a pillar model pools nothing between stages, the three laterals
+# of the BEV ResNet take bev_epilogue (fp32, mixed and sp take none), and
+# voxelize takes voxel_segments twice (every serving path; training none)
 LAUNCHES = {**PER_FRAME, "stage_mark": 0, "stage_pool": 0, "bev_epilogue": 3,
-            "query_attention": 0}
+            "query_attention": 0, "voxel_segments": 2}
 # a dsvt-voxel-waymo frame: four stages of one block (8 encoders), B3 in
 # the VFE (2) and in each of the 3 poolings' max, stage_pool in each
 VOXEL_LAUNCHES = {**LAUNCHES, "segment_max": 2 + 3, "stage_pool": 3}
@@ -246,6 +259,7 @@ SYMBOLS = {                        # the __global__ function(s) of each kernel
     "bev_epilogue": "bev_epilogue_kernel",
     # the attention and the combine of its partials
     "query_attention": "query_attention",
+    "voxel_segments": "voxel_",     # voxel_cap_kernel, voxel_pillars_kernel
 }
 REPLACES = {
     "segment_max": "dsvt_ai_trt_tpu/ops/segment_pallas.py:125",
@@ -256,6 +270,7 @@ REPLACES = {
     "stage_pool": None,   # the JAX package has no staged backbone
     "bev_epilogue": None,  # XLA fused the laterals' bias, ReLU and concat
     "query_attention": None,  # the JAX package has no TransFusion head
+    "voxel_segments": None,   # XLA's scans in dsvt_ai_trt_tpu/ops/voxelize.py
 }
 NMS_REPS = (200, 20)               # host NMS timings: native, NumPy route
 GOLDEN_TINY = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -266,6 +281,11 @@ VOXEL_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 QUERY_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "benchmark", "configs",
                             "dsvt-transfusion-nuscenes.json")
+# the served configurations whose caps phase 5a times voxelize at
+VOXELIZE_CONFIGS = {name: os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "benchmark", "configs",
+    name + ".json") for name in ("dsvt-nuscenes", "dsvt-waymo",
+                                 "dsvt-voxel-waymo")}
 
 
 class SmokeFailure(Exception):
@@ -840,6 +860,94 @@ def check_bev_epilogue(recorder, frame):
             "bound_by": by, "bytes": nbytes, "ops": 2 * elems,
             "laterals": [list(p[0].shape) for p in pairs],
             "max_abs_err": 0.0}
+
+
+def check_voxelize(frames):
+    """Phase 5a (module docstring): kernel voxel_segments at the caps of
+    the three served configurations, on the dense frame (nuScenes) and
+    phase 11's densified frame (Waymo): equal to the plain steps, timed
+    against its bound, the plain steps and torch.cummax."""
+    import torch
+    from dsvt_ai_trt_tpu_torch import bench
+    from dsvt_ai_trt_tpu_torch.config import DSVTConfig
+    from dsvt_ai_trt_tpu_torch.ops import voxelize as vox
+    from dsvt_ai_trt_tpu_torch.ops import voxelize_kernel as vk
+    waymo = None
+    out = {}
+    for name, path in VOXELIZE_CONFIGS.items():
+        with open(path) as f:
+            raw = json.load(f)["config"]
+        cfg = DSVTConfig.from_json(json.dumps({**raw, "precision": "bf16"}))
+        if name == "dsvt-nuscenes":
+            pts, n = frames["dense_seed0"]
+        else:
+            waymo = waymo or bench.densify([bench.waymo_base_frame()],
+                                           bench.WAYMO_POINTS,
+                                           cfg.max_points)[0]
+            pts, n = waymo
+        check(pts.shape[0] == cfg.max_points, f"voxelize {name}: the frame "
+              f"holds {pts.shape[0]} rows, not max_points")
+        points = torch.from_numpy(pts).cuda()
+        num = torch.tensor(int(n), device="cuda")
+        s_cell, perm = vox.sort_cells(points, num, cfg)
+        key = vk.cap_keys_cuda(s_cell, cfg)
+        check(torch.equal(key, vox.cap_keys_plain(s_cell, cfg)),
+              f"voxelize {name}: the cap's keys differ from the plain ones")
+        comp = vox.compact(key, cfg)
+        s_c, perm2, _, pop = comp
+        got = vk.pillars_cuda(s_c, pop, points, perm, perm2, cfg)
+        want = vox.pillars_plain(*comp, points[perm], cfg)
+        whole = (vox.voxelize(points, num, cfg, use_kernels=True),
+                 vox.voxelize(points, num, cfg, use_kernels=False))
+        for field, a, b in zip(want._fields, got, want):
+            check(torch.equal(a, b), f"voxelize {name}: {field} of the "
+                  f"second launch differs from pillars_plain's")
+        for field in want._fields:
+            check(torch.equal(getattr(whole[0], field),
+                              getattr(whole[1], field)),
+                  f"voxelize {name}: {field} differs from the plain version")
+
+        def kernel():
+            vk.cap_keys_cuda(s_cell, cfg)
+            vk.pillars_cuda(s_c, pop, points, perm, perm2, cfg)
+
+        def plain():
+            vox.cap_keys_plain(s_cell, cfg)
+            vox.pillars_plain(*comp, points[perm], cfg)
+
+        N, P1 = s_cell.shape[0], s_c.shape[0]
+        pos_n = torch.arange(N, device="cuda")
+        pos_p = torch.arange(P1, device="cuda")
+
+        def library():          # the plain version's three scans
+            torch.cummax(pos_n, 0)
+            torch.cummax(pos_p, 0)
+            torch.cummax(pos_p, 0)
+
+        kept = int(got[2].sum())
+        # each input byte read once, each output written once: the cap's
+        # cells and keys; every compacted row's cell and pillar read and
+        # its features, pillar and flag written; a kept row's two orders
+        # and point read; the registry written
+        nbytes = (N * 16 + P1 * (16 + 4 * vk.FEATS + 9) + kept * 32
+                  + cfg.max_pillars * (9 + 8 * got[3].shape[1]) + 8)
+        t_b, by = bound_ms(nbytes, 0, BF16_FLOPS)
+        t_d, how = device_ms(kernel, SYMBOLS["voxel_segments"])
+        out[name] = {
+            "rows": [N, P1], "kept_points": kept,
+            "pillars": int(got[6]), "bytes": nbytes,
+            "ms": cuda_ms(kernel), "device_ms": t_d, "device_ms_by": how,
+            "plain_ms": cuda_ms(plain), "library_ms": cuda_ms(library),
+            "library_device_ms": device_ms(library, "scan")[0],
+            "library": "torch.cummax over N + 2 x P1 rows",
+            "bound_ms": t_b, "bound_by": by, "max_abs_err": 0.0,
+            "voxelize_device_ms": {
+                "kernel": device_ms(lambda: vox.voxelize(
+                    points, num, cfg, use_kernels=True))[0],
+                "plain": device_ms(lambda: vox.voxelize(
+                    points, num, cfg, use_kernels=False))[0]}}
+        out[name]["bound_share"] = t_b / t_d
+    return {"configs": out}
 
 
 def check_rotated_overlap(recorder, frames_to_check):
@@ -1962,18 +2070,21 @@ def check_multi(engine, frames):
     out = {"world": 2, "transport": "gloo, host copies", "seconds": seconds,
            "note": "two processes sharing one card, not a multi-GPU speed"}
 
-    def want(frames_per_rank, kernels_on=(*PER_FRAME, "bev_epilogue")):
+    def want(frames_per_rank,
+             kernels_on=(*PER_FRAME, "bev_epilogue", "voxel_segments")):
         return {k: (v * frames_per_rank if k in kernels_on else 0)
                 for k, v in LAUNCHES.items()}
 
-    # per rank: 2/8/8/1/1 a frame, eager and graph, and the laterals'
-    # bev_epilogue 3 where the BEV stack is whole; sp at fp32 takes B3, B4
-    # and nms_peel only (B1 and B2 are the bf16/mixed path's), sp at bf16
-    # no bev_epilogue (its rows carry halos); the train steps launch none
+    # per rank: 2/8/8/1/1 a frame, eager and graph, voxel_segments 2, and
+    # the laterals' bev_epilogue 3 where the BEV stack is whole; sp at fp32
+    # takes B3, B4, nms_peel and voxel_segments only (B1 and B2 are the
+    # bf16/mixed path's), sp at bf16 no bev_epilogue (its rows carry
+    # halos); the train steps launch none
     expect = {"dp": want(1), "mp_bf16": want(3),
-              "sp_fp32": want(1, ("segment_max",) + NMS_KERNELS),
-              "sp_bf16": want(3, tuple(PER_FRAME)), "dp_train": want(0),
-              "mp_train": want(0)}
+              "sp_fp32": want(1, ("segment_max", "voxel_segments")
+                              + NMS_KERNELS),
+              "sp_bf16": want(3, (*PER_FRAME, "voxel_segments")),
+              "dp_train": want(0), "mp_train": want(0)}
     # segments a replay: 1 + the breaks a frame (a step) the CPU tests pin
     # (the per-frame engines replay one frame; dp's batch engine at mp = 1
     # breaks at no collective; the steps take batch 2 with remat: dp at
@@ -2410,6 +2521,7 @@ def _main(torch) -> int:
         log({"phase": phase, **out, "phase_seconds": time.perf_counter() - t})
         return out
 
+    voxelized = timed("voxelize", check_voxelize, frames)
     timed("graph", check_graph, engine, frames)
     timed("golden", check_tiny_golden)
     t = time.perf_counter()
@@ -2439,7 +2551,10 @@ def _main(torch) -> int:
     # and the TransFusion-L head's cross-attention, per frame of phase 11c
     results["query_attention"] = query["query_attention"]
     counts["query_attention"] = query["launches"]["query_attention"]
-    named = (*PER_FRAME, "stage_pool", "bev_epilogue", "query_attention")
+    # and the voxelizer's two launches at dsvt-waymo's caps (phase 5a)
+    results["voxel_segments"] = voxelized["configs"]["dsvt-waymo"]
+    named = (*PER_FRAME, "stage_pool", "bev_epilogue", "query_attention",
+             "voxel_segments")
     sources = {name: "dsvt_ai_trt_tpu_torch/csrc/" + kernels.SPECS[name][0]
                for name in named}
     line = {"kernels": [{

@@ -66,6 +66,10 @@ SPECS = {
                      [_P, _P, _P, _I, _I, _I, _P]),
     "query_attention": ("query_attention.cu", "dsvt_query_attention",
                         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "voxel_segments": ("voxel_segments.cu", "dsvt_voxel_segments",
+                       [_I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _F, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P, _P, _P,
+                        _P, _P]),
 }
 
 ARCH = "sm_90a"

@@ -1,6 +1,7 @@
 """End-to-end DSVT detector: points -> boxes (port of model/detector.py).
 
-voxelize -> VFE (2x segmented max, kernel B3) -> window/set partition per
+voxelize (its segment work kernel ``voxel_segments``) -> VFE (2x segmented
+max, kernel B3) -> window/set partition per
 window spec -> DSVT backbone (4 blocks x 2 encoders; kernels B1 + B2 on the
 bf16/mixed fast paths) -> BEV scatter -> BEV ResNet -> lazy CenterHead ->
 top-k decode + score filter -> rotated NMS (kernel B4), or, with
@@ -50,7 +51,7 @@ set and BEV rows over a group, every rank returning the same boxes.
 loss (parallel/training.py): the plain paths (kernels B1-B3 define no
 backward, as in the JAX package), the full head, and the attention
 projections packed from the live weights.  Its integer stages
-(``partition_frame``: voxelize, window/set partitions) carry no gradient
+(``partition_frame``: voxelize, plain, window/set partitions) carry no gradient
 and run apart from the float stages (``float_stages``), so a recomputing
 backward (``torch.utils.checkpoint``) reruns only the float stages on the
 same partitions.
@@ -173,7 +174,7 @@ def forward(params: Dict, points, num_points, cfg: DSVTConfig,
     precision = cfg.precision
     use_kernels = cfg.use_pallas
     with stage_scope("voxelize"):
-        pillars = voxelize(points, num, cfg)
+        pillars = voxelize(points, num, cfg, use_kernels=use_kernels)
     with stage_scope("vfe"):
         feats = vfe_forward(pillars, params["vfe"], cfg,
                             use_kernels=use_kernels)
@@ -256,7 +257,7 @@ def partition_frame(params, points, num_points, cfg: DSVTConfig,
     stage's ``StageParts``)."""
     points, num = _inputs(params, points, num_points, device)
     with torch.no_grad():
-        pillars = voxelize(points, num, cfg)
+        pillars = voxelize(points, num, cfg, use_kernels=False)
         stages = _partitions(pillars, cfg)
     return pillars, stages
 

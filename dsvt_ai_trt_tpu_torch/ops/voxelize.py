@@ -18,6 +18,11 @@ integer output is bit-exact and the float features are too:
 Pillar ids follow ascending BEV cell index; points keep file order within a
 pillar, and the first ``max_points_per_pillar`` of them are kept.
 
+On the card with ``use_kernels`` (the serving path) the cap and everything
+after the compaction's cumsum run as kernel ``voxel_segments``
+(ops/voxelize_kernel.py, two launches): no cummax scan, shift ladder or
+head sort, and the same bits.  The binning and both sorts are shared.
+
 With ``grid_size[2] > 1`` (a voxel model, upstream DSVT-V) the cells are 3-D:
 the cell id is ``(iz * gy + iy) * gx + ix``, voxel ids follow it, ``coords``
 are [P, 3] (iz, iy, ix), and a point's centre offset takes its voxel's own z
@@ -32,6 +37,7 @@ import numpy as np
 import torch
 
 from ..config import DSVTConfig
+from . import voxelize_kernel
 from .segment import head_positions
 
 
@@ -95,21 +101,24 @@ def _shift_up(v: torch.Tensor, s: int) -> torch.Tensor:
     return torch.cat([v[s:], v.new_zeros((s,))])
 
 
-def voxelize(points: torch.Tensor, num_points, cfg: DSVTConfig) -> Pillars:
-    """points: [max_points, 4] float32 (zero padded); num_points: int or []
-    tensor on the device of ``points``, which it runs on.  Nothing is read
-    back to the host and nothing is copied from it."""
+def sentinel_cell(cfg: DSVTConfig) -> int:
+    """The cell id of rows out of range or past the count: one past the
+    last cell."""
+    gx, gy, gz = cfg.grid_size
+    return gx * gy * gz
+
+
+def sort_cells(points: torch.Tensor, num_points, cfg: DSVTConfig):
+    """The points binned into cells and stably sorted by cell: (s_cell [N],
+    perm [N]), int64, the cell ``gx * gy * gz`` on rows out of range or past
+    ``num_points``.  ``points`` [N, 4] f32."""
     dev = points.device
     N = points.shape[0]
-    P1 = cfg.max_kept_points
-    P = cfg.max_pillars
-    CAP = cfg.max_points_per_pillar
     gx, gy, gz = cfg.grid_size
     xmin, ymin, zmin = cfg.pc_range_min
     xmax, ymax, zmax = cfg.pc_range_max
     vx, vy, vz = cfg.voxel_size
 
-    points = points.float()
     x, y, z = points[:, 0], points[:, 1], points[:, 2]
     idx = torch.arange(N, device=dev)
     # range filter: [min, max) on every axis
@@ -123,48 +132,94 @@ def voxelize(points: torch.Tensor, num_points, cfg: DSVTConfig) -> Pillars:
     edges_y = cell_edges(ymin, vy, gy, dev)
     ix = _edge_bin(x, edges_x, xmin, vx, gx)
     iy = _edge_bin(y, edges_y, ymin, vy, gy)
-    edges_z = cell_edges(zmin, vz, gz, dev)
     if gz > 1:
-        iy = _edge_bin(z, edges_z, zmin, vz, gz) * gy + iy
-    sentinel = gx * gy * gz
-    cell = torch.where(valid, iy * gx + ix, torch.full_like(ix, sentinel))
+        iy = _edge_bin(z, cell_edges(zmin, vz, gz, dev), zmin, vz, gz) * gy + iy
+    cell = torch.where(valid, iy * gx + ix,
+                       torch.full_like(ix, sentinel_cell(cfg)))
 
     # group points by pillar: stable sort on the cell id keeps file order
     # within each pillar; the payload rides as gathers
-    s_cell, perm = torch.sort(cell, stable=True)
-    pay = points[perm]                                   # [N, 4] x,y,z,w
+    return torch.sort(cell, stable=True)
 
-    # rank within pillar + the cap, on the FULL stream (before compaction)
+
+def cap_keys_plain(s_cell: torch.Tensor, cfg: DSVTConfig) -> torch.Tensor:
+    """The key of the compaction's sort: a row's cell where its rank within
+    its pillar is under the cap, else the sentinel.  The cap applies to the
+    FULL stream, before the compaction."""
+    N = s_cell.shape[0]
+    sentinel = sentinel_cell(cfg)
     s_valid = s_cell != sentinel
     prev_full = torch.cat([s_cell.new_full((1,), -1), s_cell[:-1]])
     first_of_pillar = s_valid & (s_cell != prev_full)
-    pos_full = torch.arange(N, device=dev)
+    pos_full = torch.arange(N, device=s_cell.device)
     start_of = torch.cummax(torch.where(first_of_pillar, pos_full, 0), 0).values
     rank_full = pos_full - start_of
-    capped = s_valid & (rank_full < CAP)
+    capped = s_valid & (rank_full < cfg.max_points_per_pillar)
+    return torch.where(capped, s_cell, torch.full_like(s_cell, sentinel))
 
-    # compact the capped points to the front (stable), truncate to P1
-    key2 = torch.where(capped, s_cell, torch.full_like(s_cell, sentinel))
+
+def compact(key2: torch.Tensor, cfg: DSVTConfig):
+    """The capped points compacted to the front (stable) and the stream cut
+    or padded to ``max_kept_points``: (s_cell, perm2, new_pillar,
+    pillar_of_point); perm2 stays [N]."""
+    P1 = cfg.max_kept_points
+    sentinel = sentinel_cell(cfg)
     key2, perm2 = torch.sort(key2, stable=True)
     s_cell = key2[:P1]
-    pay = pay[perm2[:P1]]
     if s_cell.shape[0] < P1:   # fewer input rows than the compacted cap
-        pad = P1 - s_cell.shape[0]
-        s_cell = torch.cat([s_cell, s_cell.new_full((pad,), sentinel)])
-        pay = torch.cat([pay, pay.new_zeros((pad, 4))])
+        s_cell = torch.cat([s_cell, s_cell.new_full((P1 - s_cell.shape[0],),
+                                                    sentinel)])
+    prev = torch.cat([s_cell.new_full((1,), -1), s_cell[:-1]])
+    new_pillar = (s_cell != sentinel) & (s_cell != prev)
+    pillar_of_point = torch.cumsum(new_pillar.long(), 0) - 1          # [P1]
+    return s_cell, perm2, new_pillar, pillar_of_point
+
+
+def voxelize(points: torch.Tensor, num_points, cfg: DSVTConfig,
+             use_kernels: bool = False) -> Pillars:
+    """points: [max_points, 4] float32 (zero padded); num_points: int or []
+    tensor on the device of ``points``, which it runs on.  Nothing is read
+    back to the host and nothing is copied from it.  With ``use_kernels``
+    a CUDA tensor takes kernel ``voxel_segments`` (ops/voxelize_kernel.py)
+    for the cap and the pillars, two launches with the same bits; a CPU
+    tensor, or ``use_kernels`` off, the plain version below."""
+    points = points.float()
+    s_cell, perm = sort_cells(points, num_points, cfg)
+    if use_kernels and points.is_cuda:
+        s_cell, perm2, _, pillar_of_point = compact(
+            voxelize_kernel.cap_keys_cuda(s_cell, cfg), cfg)
+        fields = voxelize_kernel.pillars_cuda(
+            s_cell, pillar_of_point, points.contiguous(), perm, perm2, cfg)
+        return Pillars(*fields, point_count=fields[2].sum())
+    pay = points[perm]                                   # [N, 4] x,y,z,w
+    compacted = compact(cap_keys_plain(s_cell, cfg), cfg)
+    return pillars_plain(*compacted, pay, cfg)
+
+
+def pillars_plain(s_cell: torch.Tensor, perm2: torch.Tensor,
+                  new_pillar: torch.Tensor, pillar_of_point: torch.Tensor,
+                  pay: torch.Tensor, cfg: DSVTConfig) -> Pillars:
+    """The pillars of the compacted stream (``compact``'s four tensors),
+    ``pay`` [N, 4] the points in the first sort's order: the plain version
+    of kernel voxel_segments' second launch."""
+    dev = s_cell.device
+    P1 = cfg.max_kept_points
+    P = cfg.max_pillars
+    gx, gy, gz = cfg.grid_size
+    xmin, ymin, zmin = cfg.pc_range_min
+    vx, vy, vz = cfg.voxel_size
+    sentinel = sentinel_cell(cfg)
+    pay = pay[perm2[:P1]]
+    if pay.shape[0] < P1:
+        pay = torch.cat([pay, pay.new_zeros((P1 - pay.shape[0], 4))])
     sx, sy, sz, sw = pay[:, 0], pay[:, 1], pay[:, 2], pay[:, 3]
     sbx = s_cell % gx
     sby = s_cell // gx
     if gz > 1:
         sbz, sby = sby // gy, sby % gy
     else:
-        sbz = _edge_bin(sz, edges_z, zmin, vz, gz)
+        sbz = _edge_bin(sz, cell_edges(zmin, vz, gz, dev), zmin, vz, gz)
     s_valid = s_cell != sentinel
-
-    prev = torch.cat([s_cell.new_full((1,), -1), s_cell[:-1]])
-    new_pillar = s_valid & (s_cell != prev)
-
-    pillar_of_point = torch.cumsum(new_pillar.long(), 0) - 1          # [P1]
     kept = s_valid & (pillar_of_point < P)
     point_pillar = torch.where(kept, pillar_of_point,
                                torch.full_like(pillar_of_point, P))

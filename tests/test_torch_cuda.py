@@ -436,7 +436,7 @@ def test_graph_replay_equals_eager(dev, precision, with_nms):
             "encoder_epilogue": fused, "rotated_overlap": int(with_nms),
             "nms_peel": int(with_nms), "stage_mark": 0, "stage_pool": 0,
             "bev_epilogue": 3 if precision == "bf16" else 0,
-            "query_attention": 0}
+            "query_attention": 0, "voxel_segments": 2}
     assert engine.graph_launches == want
     kernels.reset_counts()
     replays = [engine(pts, n) for pts, n in frames]   # no wait between
@@ -462,7 +462,8 @@ def test_scan_graph_equals_per_frame_replays(dev):
               ((1500, 1), (600, 2), (900, 3))]
     per_frame = {"segment_max": 2, "set_attention": 4, "encoder_epilogue": 4,
                  "rotated_overlap": 1, "nms_peel": 1, "stage_mark": 0,
-                 "stage_pool": 0, "bev_epilogue": 3, "query_attention": 0}
+                 "stage_pool": 0, "bev_epilogue": 3, "query_attention": 0,
+                 "voxel_segments": 2}
     assert scan.graph_launches == {k: 3 * v for k, v in per_frame.items()}
     points = np.stack([p for p, _ in frames])
     kernels.reset_counts()
@@ -689,7 +690,8 @@ def test_segmented_engine_replay_equals_eager(dev, gloo1, group):
     assert engine.graph_launches == {
         "segment_max": 2, "set_attention": 0, "encoder_epilogue": 0,
         "rotated_overlap": 1, "nms_peel": 1, "stage_mark": 0,
-        "stage_pool": 0, "bev_epilogue": 0, "query_attention": 0}
+        "stage_pool": 0, "bev_epilogue": 0, "query_attention": 0,
+        "voxel_segments": 2}
     for n, seed in ((1500, 1), (600, 2)):
         pts, n = _cloud(cfg, n, seed)
         got = engine(pts, n)

@@ -205,7 +205,7 @@ def _port(anchor, name, with_nms):
         want = {"segment_max": 2, "set_attention": 0, "encoder_epilogue": 0,
                 "rotated_overlap": int(with_nms), "nms_peel": int(with_nms),
                 "stage_mark": 0, "stage_pool": 0, "bev_epilogue": 0,
-                "query_attention": 0}
+                "query_attention": 0, "voxel_segments": 2}
         assert kernels.counts() == want, kernels.counts()
     assert_caps_free(anchor["oracle"], anchor["cfg"], pts, n, occ, name)
     return boxes

@@ -109,7 +109,8 @@ def test_transfusion_engine_replay_equals_eager(dev):
     assert engine.graph_launches == {
         "segment_max": 2, "set_attention": 8, "encoder_epilogue": 8,
         "rotated_overlap": 0, "nms_peel": 0, "stage_mark": 0,
-        "stage_pool": 0, "bev_epilogue": 3, "query_attention": 1}
+        "stage_pool": 0, "bev_epilogue": 3, "query_attention": 1,
+        "voxel_segments": 2}
     kernels.reset_counts()
     got = engine(pts, n)
     assert kernels.counts() == engine.graph_launches

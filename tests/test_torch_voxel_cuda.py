@@ -134,7 +134,8 @@ def test_voxel_engine_replay_equals_eager(dev):
     assert engine.graph_launches == {
         "segment_max": 2 + 3, "set_attention": 8, "encoder_epilogue": 8,
         "rotated_overlap": 1, "nms_peel": 1, "stage_mark": 0,
-        "stage_pool": 3, "bev_epilogue": 3, "query_attention": 0}
+        "stage_pool": 3, "bev_epilogue": 3, "query_attention": 0,
+        "voxel_segments": 2}
     kernels.reset_counts()
     got = engine(pts, n)
     assert kernels.counts() == engine.graph_launches

@@ -1,4 +1,5 @@
-"""Port voxelize + window/set partition vs the JAX package: exact equality.
+"""Port voxelize + window/set partition vs the JAX package: exact equality;
+and the checks of kernel voxel_segments' wrappers, which run here.
 
 Same cloud (numpy seed, tests/conftest.py:make_cloud) into both packages.
 Every Pillars field and every window/set partition field must be exactly
@@ -19,6 +20,8 @@ from conftest import make_cloud, tiny_config
 
 from dsvt_ai_trt_tpu.ops.voxelize import voxelize as jax_voxelize
 from dsvt_ai_trt_tpu.ops.windows import partition as jax_partition
+from dsvt_ai_trt_tpu_torch import kernels
+from dsvt_ai_trt_tpu_torch.ops import voxelize_kernel as vk
 from dsvt_ai_trt_tpu_torch.ops.voxelize import voxelize
 from dsvt_ai_trt_tpu_torch.ops.windows import partition
 
@@ -99,3 +102,45 @@ def test_voxelize_point_cap_before_compaction():
                                       np.asarray(getattr(ref, field)),
                                       err_msg=field)
     assert int(got.point_count) == 200
+
+
+def _segments_args():
+    cfg = tiny_config()
+    rows, m = 16, 32
+    i64 = torch.zeros(rows, dtype=torch.int64)
+    return cfg, (i64, i64.clone(), torch.zeros(m, 4),
+                 torch.zeros(m, dtype=torch.int64),
+                 torch.zeros(m, dtype=torch.int64))
+
+
+BAD_SEGMENTS = {
+    "s_cell_type": (lambda a: (a[0].int(), *a[1:]), "s_cell must be int64"),
+    "pillar_shape": (lambda a: (a[0], a[1][:-1], *a[2:]),
+                     "pillar_of_point must be int64"),
+    "points_type": (lambda a: (*a[:2], a[2].double(), *a[3:]),
+                    "points must be f32"),
+    "points_shape": (lambda a: (*a[:2], a[2][:, :3], *a[3:]),
+                     "points must be f32"),
+    "perm_shape": (lambda a: (*a[:3], a[3][:-1], a[4]), "perm must be int64"),
+    "perm2_type": (lambda a: (*a[:4], a[4].float()), "perm2 must be int64"),
+    "cap": (lambda a: a, "max_points_per_pillar"),
+    "device": (lambda a: a, "CUDA"),
+}
+
+
+@pytest.mark.parametrize("bad", sorted(BAD_SEGMENTS))
+def test_voxel_segments_cuda_checks_arguments_first(bad):
+    """Kernel voxel_segments' wrappers refuse a wrong type, shape or device
+    and a cap above 64 with ValueError before they build or launch
+    anything (here, on the CPU, before they look for a card)."""
+    cfg, args = _segments_args()
+    make, match = BAD_SEGMENTS[bad]
+    if bad == "cap":
+        cfg = dataclasses.replace(cfg, max_points_per_pillar=vk.MAX_CAP + 1)
+    before = kernels.counts()
+    with pytest.raises(ValueError, match=match):
+        vk.pillars_cuda(*make(args), cfg)
+    if bad in ("s_cell_type", "cap", "device"):
+        with pytest.raises(ValueError, match=match):
+            vk.cap_keys_cuda(make(args)[0], cfg)
+    assert kernels.counts() == before
